@@ -1,13 +1,27 @@
-"""Per-request and per-build timing records of an edge-cloud pipeline.
+"""EdgeCloudPipeline: two built stages joined by a priced network link.
 
-``RequestTiming`` is Eq. 1 for one request (edge wall, priced transfer,
-cloud wall); ``BuildReport`` splits a pipeline build into its parts.  The
-stateless ``EdgeCloudPipeline`` arrives with the stateless slice; the
+The counterpart of ``repro/core/pipeline.py`` without a cloud mesh (the
+sharded slice brings ``mesh_shape``; asking for one raises).  ``process``
+runs stage-edge (measured wall-clock, synchronised, scaled by the
+cloud/edge speed ratio), prices the boundary transfer with the current
+``NetworkModel`` (virtual time: there is no real link), and runs
+stage-cloud (measured wall-clock, synchronised).  ``RequestTiming`` is
+Eq. 1 for one request; ``BuildReport`` splits a build into its parts.  The
 stateful decode pipeline lives in ``repro_torch.core.stateful``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC
+from repro_torch.core.network import NetworkModel
+from repro_torch.core.stages import (StageRunner, param_bytes, to_device,
+                                     tree_map)
+from repro_torch.core.timing import Stopwatch
+from repro_torch.device import synchronize
 
 
 @dataclass
@@ -33,3 +47,109 @@ class BuildReport:
     def total(self) -> float:
         return (self.t_weights + self.t_compile_edge + self.t_compile_cloud
                 + self.t_reshard)
+
+
+class EdgeCloudPipeline:
+    """One edge-cloud pipeline at a fixed split point.
+
+    The two stages are built one after the other: both run on one card
+    and are dispatched by one Python thread, so overlapping their warm-up
+    forwards would only interleave them on the interpreter lock (the
+    reference overlaps two XLA compilations, which release it)."""
+
+    def __init__(self, runner: StageRunner, split: int, net: NetworkModel,
+                 *, edge_scale: float = CLOUD_SPEC.flops / EDGE_SPEC.flops,
+                 owns_weights: bool = False,
+                 mesh_shape: Optional[tuple] = None):
+        if mesh_shape is not None:
+            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
+                                      "is not ported yet")
+        self.runner = runner
+        self.split = split
+        self.net = net
+        self.edge_scale = edge_scale     # edge is this much slower than host
+        self.owns_weights = owns_weights  # True => separate weight buffers (2x mem)
+        self.params = runner.params
+        self.edge_fn = None
+        self.cloud_fn = None
+
+    # -- build ----------------------------------------------------------
+    def build(self, sample_inputs, *, cold: bool,
+              reload_from: Optional[str] = None) -> BuildReport:
+        """Build both stages for inputs shaped like ``sample_inputs``.
+
+        cold=True  -> fresh callables, warmed up, cached nowhere: "new
+                      container".
+        cold=False -> the runner's cached stages: "same container" (hit if
+                      this split was built before; otherwise build only).
+        reload_from -> reload weights from disk first (Pause-and-Resume:
+                      the resumed app re-reads its model file).
+        """
+        rep = BuildReport()
+        r = self.runner
+        dev = r.device
+        if reload_from is not None:
+            from repro_torch.checkpoint import load_pytree
+            sw = Stopwatch()
+            self.params = load_pytree(reload_from, like=r.params)
+            synchronize(dev)
+            rep.t_weights = sw.elapsed()
+        elif self.owns_weights:
+            sw = Stopwatch()
+            self.params = tree_map(torch.clone, r.params)
+            synchronize(dev)
+            rep.t_weights = sw.elapsed()
+        else:
+            self.params = r.params
+        lo_c, hi_c = self.split + 1, r.num_units
+        sample = to_device(sample_inputs, dev)
+        sw_wall = Stopwatch()
+        sw = Stopwatch()
+        self.edge_fn = r.stage_executable(0, lo_c, self.params, sample,
+                                          fresh=cold)
+        rep.t_compile_edge = sw.restart()
+        mid = r.stage_out_avals(0, lo_c, self.params, sample)
+        self.cloud_fn = r.stage_executable(lo_c, hi_c, self.params, mid,
+                                           fresh=cold)
+        rep.t_compile_cloud = sw.elapsed()
+        rep.t_wall = rep.t_weights + sw_wall.elapsed()
+        return rep
+
+    def warm(self, sample_inputs) -> RequestTiming:
+        """One throwaway forward: the "always-running" warm-up."""
+        _, timing = self.process(sample_inputs)
+        return timing
+
+    @property
+    def ready(self) -> bool:
+        return self.edge_fn is not None
+
+    def close(self) -> None:
+        """Drop the built stages and weight references (pool eviction)."""
+        self.edge_fn = None
+        self.cloud_fn = None
+        self.params = None
+
+    # -- serve ------------------------------------------------------------
+    def process(self, inputs, *, batch: int = 1, seq: Optional[int] = None
+                ) -> tuple[Any, RequestTiming]:
+        assert self.ready, "pipeline not built"
+        dev = self.runner.device
+        inputs = to_device(inputs, dev)
+        sw = Stopwatch()
+        h = self.edge_fn(self.params, inputs)
+        synchronize(dev)
+        t_edge = sw.elapsed() * self.edge_scale
+        if seq is None:
+            seq = inputs["tokens"].shape[1] if "tokens" in inputs else 1
+        bbytes = self.runner.boundary_bytes(self.split, batch, seq)
+        t_transfer = self.net.transfer_time(bbytes)
+        sw = Stopwatch()
+        out = self.cloud_fn(self.params, h)
+        synchronize(dev)
+        t_cloud = sw.elapsed()
+        return out["logits"], RequestTiming(t_edge, t_transfer, t_cloud)
+
+    # -- memory accounting (Table I) --------------------------------------
+    def live_param_bytes(self) -> int:
+        return param_bytes(self.params) if self.ready else 0

@@ -4,8 +4,8 @@ The port's copy of ``repro/core/pool.py``, with two parts left for their
 slices: a cloud ``mesh_shape`` (sharded slice) raises
 ``NotImplementedError``, and so does a ``fault_plan`` (``faults.py`` is not
 ported), so the reshard-on-activation and chaos hooks are not here.  The
-stateless ``EdgeCloudPipeline`` is not ported either: the base pool's
-``_new_pipeline`` raises, and ``StatefulPipelinePool`` overrides it.
+base pool builds stateless ``EdgeCloudPipeline``s; ``StatefulPipelinePool``
+overrides ``_new_pipeline`` with its decode pipelines.
 
 The pool owns every built ``EdgeCloudPipeline``, keyed by a frozen
 ``PipelineKey`` (``split``, ``mesh_shape``, ``owns_weights``, with room
@@ -65,7 +65,7 @@ from repro_torch.core.concurrency import RANK_POOL, guarded_by, make_lock
 from repro_torch.core.executor import (BackgroundBuildFailed, BuildExecutor,
                                  BuildHandle)
 from repro_torch.core.network import NetworkModel
-from repro_torch.core.pipeline import BuildReport
+from repro_torch.core.pipeline import BuildReport, EdgeCloudPipeline
 
 # sentinel: "caller did not say" — distinct from an explicit mesh_shape=None
 # (an explicitly unsharded cloud stage)
@@ -345,11 +345,12 @@ class PipelinePool:
                 e.pipeline.net = net
 
     # -- build / reuse -----------------------------------------------------
-    def _new_pipeline(self, key: PipelineKey):
+    def _new_pipeline(self, key: PipelineKey) -> EdgeCloudPipeline:
         """Pipeline construction hook (stateful pools build
         ``StatefulEdgeCloudPipeline``s against their shared session)."""
-        raise NotImplementedError("the stateless EdgeCloudPipeline is not "
-                                  "ported yet; use StatefulPipelinePool")
+        return EdgeCloudPipeline(self.runner, key.split, self.net,
+                                 owns_weights=key.owns_weights,
+                                 mesh_shape=key.mesh_shape)
 
     def ensure(self, key, *, owns_weights: bool = False,
                cold: bool = False, reload_from: Optional[str] = None,

@@ -1,18 +1,36 @@
-"""Shape identities of stage inputs.
+"""Stage-wise model execution: the "sequence of layers" abstraction.
 
-The counterparts of ``repro.core.stages.abstractify``/``aval_fingerprint``:
-a nested structure of tensors becomes ``TensorSpec``s (shape, dtype,
-device), and its fingerprint is a hashable key over structure, shapes and
-dtypes.  ``StatefulStageRunner`` caches its built stages on it.  The
-stateless ``StageRunner``/``CnnStageRunner`` arrive with the stateless
-slice.
+The counterpart of ``repro/core/stages.py`` for the dense family.  A model
+is a list of UNITS: unit 0 = embedding, units 1..L = decoder layers, unit
+L+1 = LM head.  A split after unit ``k`` puts units [0, k] on the edge stage
+and (k, N) on the cloud stage; the boundary tensor is the hidden state.
+
+``abstractify``/``aval_fingerprint`` turn a nested structure of tensors
+into ``TensorSpec``s (shape, dtype, device) and a hashable key over
+structure, shapes and dtypes; both runners cache their built stages on it.
+
+Building a stage.  JAX compiles an executable per ``(range, avals)``
+(``_CompiledStageCache``).  PyTorch runs eagerly, so building a stage here
+is making its callable and running one synchronised warm-up forward on
+scratch state shaped like the inputs (``StageRunner.stage_executable``).
+A warm build caches the callable per ``(lo, hi, fingerprint)`` and a hit
+returns it; ``fresh=True`` builds anew, warms up, and caches nothing (the
+paper's "new container").  An eager callable serves any input shape, so
+the reference's retrace fallback for unseen shapes has no counterpart.
+``CnnStageRunner`` arrives with the CNN slice (ROADMAP Queue A).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.concurrency import (RANK_STAGE_CACHE, guarded_by,
+                                          make_lock)
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import transformer as T
 
 
 @dataclass(frozen=True)
@@ -77,3 +95,124 @@ def tree_map(fn, tree) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def layer_params(params, idx: int):
+    """Layer ``idx``'s weights as views into the stacked tensors."""
+    return tree_map(lambda a: a[idx], params["layers"])
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+def to_device(tree, device: torch.device):
+    """Tensors (or array-likes) of a nested structure, on ``device``."""
+    return tree_map(lambda t: torch.as_tensor(t, device=device), tree)
+
+
+@guarded_by("_cache_lock", "_stage_cache", rank=RANK_STAGE_CACHE)
+class StageRunner:
+    """Executes unit ranges [lo, hi) of a dense model for full-sequence
+    inference.
+
+    ``params`` are placed on ``device``, which defaults to the card and
+    raises without one unless the caller asks for ``"cpu"``.
+    ``attn_impl`` is the attention of every decoder layer
+    (``layers.attention``): ``"kernel"`` (or the reference's ``"pallas"``)
+    runs the hand-written flash-attention kernel."""
+
+    def __init__(self, cfg: ArchConfig, params, attn_impl: str = "chunked",
+                 *, device="cuda"):
+        T._check_family(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.attn_impl = attn_impl
+        self._stage_cache: Dict[Tuple, Any] = {}
+        self._cache_lock = make_lock("stage-cache", RANK_STAGE_CACHE)
+
+    # -- unit layout --------------------------------------------------
+    @property
+    def num_units(self) -> int:
+        return self.cfg.num_layers + 2
+
+    def edge_param_bytes(self, split: int) -> int:
+        """Approximate parameter bytes the edge holds at ``split`` (layers
+        ``[0, split)`` plus the embedding): the layer-proportional share
+        of the full model."""
+        frac = (split + 1) / (self.cfg.num_layers + 2)
+        return int(param_bytes(self.params) * frac)
+
+    # -- execution ----------------------------------------------------
+    def _apply_unit(self, params, state: Dict[str, Any],
+                    i: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        if i == 0:
+            return {"h": T.embed_inputs(cfg, params, state)}
+        if i == self.num_units - 1:
+            x = T._apply_norm(cfg, params["final_norm"], state["h"])
+            return {"logits": (x @ T.lm_head_weights(cfg, params)).float()}
+        x = state["h"]                               # decoder layer i - 1
+        rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
+        x, _, _ = T.attn_block_full(cfg, layer_params(params, i - 1), x,
+                                    rope_cs, impl=self.attn_impl,
+                                    window=cfg.sliding_window)
+        out = dict(state)
+        out["h"] = x
+        return out
+
+    def _run(self, params, state, lo: int, hi: int):
+        for i in range(lo, hi):
+            state = self._apply_unit(params, state, i)
+        return state
+
+    def run_units(self, state, lo: int, hi: int):
+        return self._run(self.params, state, lo, hi)
+
+    # -- built stages ----------------------------------------------------
+    def stage_out_avals(self, lo: int, hi: int, params, state):
+        """Specs of the output of units [lo, hi) for inputs shaped like
+        ``state``, worked out from the unit layout (nothing runs; the
+        reference traces with ``eval_shape``)."""
+        spec = abstractify(state)
+        if lo == 0:
+            B, S = spec["tokens"].shape
+            h = TensorSpec((B, S, self.cfg.d_model), params["embed"].dtype,
+                           params["embed"].device)
+        else:
+            h = spec["h"]
+        if hi == self.num_units:
+            return {"logits": TensorSpec(h.shape[:2] + (self.cfg.vocab_size,),
+                                         torch.float32, h.device)}
+        return {"h": h}
+
+    def stage_executable(self, lo: int, hi: int, params, state, *,
+                         fresh: bool = False):
+        """Built callable ``fn(params, state)`` for units [lo, hi), for a
+        ``state`` shaped like ``state`` (tensors or ``TensorSpec``s; never
+        read, only their shapes).  A miss (or ``fresh=True``) makes the
+        callable and runs one synchronised warm-up forward on scratch state
+        shaped like ``state``; only a warm (``fresh=False``) build is
+        cached, per ``(lo, hi, fingerprint)``."""
+        specs = abstractify(state)
+        key = (lo, hi) + aval_fingerprint(specs)
+        if not fresh:
+            with self._cache_lock:
+                hit = self._stage_cache.get(key)
+            if hit is not None:
+                return hit
+
+        def fn(params, state):
+            return self._run(params, state, lo, hi)
+        fn(params, materialize(specs))           # warm-up on scratch state
+        synchronize(self.device)
+        if not fresh:
+            with self._cache_lock:
+                fn = self._stage_cache.setdefault(key, fn)
+        return fn
+
+    def boundary_bytes(self, split: int, batch: int, seq: int,
+                       act_bytes: int = 4) -> int:
+        """Bytes crossing the link for a split after unit ``split``."""
+        return batch * seq * self.cfg.d_model * act_bytes

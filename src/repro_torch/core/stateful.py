@@ -65,8 +65,8 @@ from repro_torch.core.network import NetworkModel
 from repro_torch.core.pipeline import BuildReport, RequestTiming
 from repro_torch.core.pool import PipelinePool
 from repro_torch.core.stages import (TensorSpec, abstractify,
-                                     aval_fingerprint, materialize,
-                                     tree_leaves, tree_map)
+                                     aval_fingerprint, layer_params,
+                                     materialize, param_bytes, tree_map)
 from repro_torch.core.state_handoff import HandoffPlan, plan_handoff
 from repro_torch.core.timing import Stopwatch
 from repro_torch.device import resolve_device, synchronize
@@ -174,15 +174,6 @@ def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.from_numpy(np.array(tokens, dtype=np.int64)).to(device)
 
 
-def _layer(params, idx: int):
-    """Layer ``idx``'s weights as views into the stacked tensors."""
-    return tree_map(lambda a: a[idx], params["layers"])
-
-
-def _param_bytes(params) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
-
-
 # ---------------------------------------------------------------------------
 # stage runner: built unit-range callables
 # ---------------------------------------------------------------------------
@@ -198,11 +189,14 @@ class StatefulStageRunner:
 
     ``device`` defaults to the card and raises without one unless the
     caller asks for ``"cpu"``; ``params`` are placed on it.
-    ``decode_impl`` selects the decode attention: ``"kernel"`` routes it
-    through the hand-written flash-decode kernel (whose wrapper runs the
-    plain version on a CPU tensor), ``"reference"`` through
-    ``layers.decode_attention``; ``"auto"`` resolves ONCE at construction
-    to kernel on CUDA and reference elsewhere.  ``rolled`` is accepted for
+    ``attn_impl`` is the full-sequence attention of the prefill and the
+    recompute arm (``layers.attention``: ``"chunked"``, or ``"kernel"`` for
+    the hand-written flash-attention kernel).  ``decode_impl`` selects
+    the decode attention: ``"kernel"`` routes it through the hand-written
+    flash-decode kernel (whose wrapper runs the plain version on a CPU
+    tensor), ``"reference"`` through ``layers.decode_attention``;
+    ``"auto"`` resolves ONCE at construction to kernel on CUDA and
+    reference elsewhere.  ``rolled`` is accepted for
     the reference's signature and changes nothing: the reference's
     ``lax.scan`` over stacked weights shrinks a compile that eager
     PyTorch does not have, so both settings run one Python loop over the
@@ -269,13 +263,13 @@ class StatefulStageRunner:
     def edge_param_bytes(self, split: int) -> int:
         """Layer-proportional edge parameter bytes at ``split``."""
         frac = (split + 1) / (self.cfg.num_layers + 2)
-        return int(_param_bytes(self.params) * frac)
+        return int(param_bytes(self.params) * frac)
 
     # -- one decoder unit, one token ------------------------------------
     def _decode_unit(self, params, unit, x, cache, new, pos, rope):
         cfg = self.cfg
         kk, vk = _unit_state_keys(cfg, unit)
-        p = _layer(params, unit[1])
+        p = layer_params(params, unit[1])
         B = x.shape[0]
         h = T._apply_norm(cfg, p["ln1"], x)
         q, k, v = T._project_qkv(cfg, p["attn"], h)
@@ -313,16 +307,14 @@ class StatefulStageRunner:
         cfg = self.cfg
 
         def fn(params, x):
-            S = x.shape[1]
-            rope_cs = Lyr.rope_cos_sin(torch.arange(S, device=x.device),
-                                       cfg.head_dim, cfg.rope_theta)
+            rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
             caches: Dict[str, Any] = {}
             bounds = []
             for unit in units:
                 bounds.append(x)
                 kk, vk = _unit_state_keys(cfg, unit)
                 x, (k, v), _ = T.attn_block_full(
-                    cfg, _layer(params, unit[1]), x, rope_cs,
+                    cfg, layer_params(params, unit[1]), x, rope_cs,
                     impl=self.attn_impl, window=cfg.sliding_window)
                 caches[kk] = _fit_kv(k, self.max_seq)
                 caches[vk] = _fit_kv(v, self.max_seq)
@@ -352,12 +344,12 @@ class StatefulStageRunner:
                 m = (ar < length)[None, :, None, None]
             else:
                 m = (ar[None, :] < length[:, None])[:, :, None, None]
-            rope_cs = Lyr.rope_cos_sin(ar, cfg.head_dim, cfg.rope_theta)
+            rope_cs = T._rope_for(cfg, CL, device=x.device)
             caches: Dict[str, Any] = {}
             for unit in units:
                 kk, vk = _unit_state_keys(cfg, unit)
                 x, (k, v), _ = T.attn_block_full(
-                    cfg, _layer(params, unit[1]), x, rope_cs,
+                    cfg, layer_params(params, unit[1]), x, rope_cs,
                     impl=self.attn_impl, window=cfg.sliding_window)
                 caches[kk] = (k * m).transpose(1, 2).contiguous()
                 caches[vk] = (v * m).transpose(1, 2).contiguous()
@@ -841,7 +833,7 @@ class StatefulEdgeCloudPipeline:
 
     # -- memory accounting ------------------------------------------------
     def live_param_bytes(self) -> int:
-        return _param_bytes(self.params) if self.ready else 0
+        return param_bytes(self.params) if self.ready else 0
 
 
 # ---------------------------------------------------------------------------
@@ -976,8 +968,8 @@ def make_stateful_manager(cfg: ArchConfig, params=None, *, split: int,
                           force_mode: Optional[str] = None,
                           mem_budget_bytes: Optional[int] = None,
                           decode_impl: str = "auto", rolled: bool = True,
-                          device="cuda", dtype: torch.dtype = torch.float32,
-                          prompt=None):
+                          attn_impl: str = "chunked", device="cuda",
+                          dtype: torch.dtype = torch.float32, prompt=None):
     """A ``PipelineManager`` whose pool serves a stateful decode stream.
 
     Prefills a prompt so the session state (and its hand-off surface)
@@ -985,12 +977,15 @@ def make_stateful_manager(cfg: ArchConfig, params=None, *, split: int,
     session)``.  Without ``params``, weights come from ``init_model``
     seeded with ``seed``, in ``dtype``; without ``prompt`` (``(batch,
     prompt_len)`` token ids), the prompt is drawn from a generator seeded
-    with ``seed + 1``.  ``device`` defaults to the card."""
+    with ``seed + 1``.  ``attn_impl`` is the runner's full-sequence
+    attention (prefill and the recompute arm): ``"kernel"`` puts both on
+    the flash-attention kernel.  ``device`` defaults to the card."""
     from repro_torch.core.switching import PipelineManager
     dev = resolve_device(device)
     if params is None:
         params = T.init_model(cfg, dtype=dtype, device=dev, seed=seed)
     runner = StatefulStageRunner(cfg, params, max_seq=max_seq,
+                                 attn_impl=attn_impl,
                                  decode_impl=decode_impl, rolled=rolled,
                                  device=dev)
     session = DecodeSession(runner)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` file under ``repro_torch/csrc`` is compiled by ``nvcc`` into
+Every ``*.cu`` file under ``repro_torch/csrc`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``.  The
 build happens at first use, from the sources in the checkout, into
 ``build/kernels/<hash>/`` at the repository root (listed in .gitignore),
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,23 +58,45 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> float:
     """Compile the library if it is not built yet; returns the seconds the
-    compile took (0.0 when an up-to-date library was already there).  The
-    compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``nvcc.log``."""
+    build took (0.0 when an up-to-date library was already there).  The
+    sources compile in parallel, one ``nvcc`` each; the compiler's report
+    (registers, shared memory, spills) is kept beside the library as
+    ``nvcc.log``."""
     out = library_path()
     if out.exists() and not force:
         return 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     sw = Stopwatch()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(f"== {src.name} (rc {proc.returncode})\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{stderr[-4000:]}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *[str(obj) for _, obj, _ in jobs]],
+                              capture_output=True, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}"
+                   f"{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stderr[-4000:]}")
     took = sw.elapsed()
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    (out.parent / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)                 # atomic: no half-written library
     return took
 
@@ -86,10 +109,17 @@ def load() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(str(library_path()))
             P, I = ctypes.c_void_p, ctypes.c_int
+            F = ctypes.c_float
             for name in ("flash_decode_f32", "flash_decode_bf16"):
                 fn = getattr(lib, name)
                 fn.argtypes = [P, P, P, P, I, P, P, P, P,
-                               I, I, I, I, I, I, I, ctypes.c_float, P]
+                               I, I, I, I, I, I, I, F, P]
+                fn.restype = I
+            for name in ("flash_attention_f32", "flash_attention_bf16"):
+                fn = getattr(lib, name)
+                fn.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                               ctypes.POINTER(ctypes.c_int64), I, I, I, I,
+                               F, P]
                 fn.restype = I
             _lib = lib
         return _lib

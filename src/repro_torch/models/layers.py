@@ -9,8 +9,12 @@ so the two packages agree on the same weights.
 Attention implementations
 -------------------------
 ``naive``   materialises the full score matrix — small-shape oracle only.
-``chunked`` online softmax over KV blocks (flash-style) in plain torch —
-            the prefill and recompute path.  No library attention is used.
+``chunked`` online softmax over KV blocks (flash-style) in plain torch.
+``kernel``  the hand-written flash-attention kernel
+            (``repro_torch.kernels.flash_attention``; ``pallas``, the
+            reference's name, is the same route): on a CPU tensor its
+            wrapper runs the plain version, on a CUDA tensor the kernel.
+No library attention is used.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as FA
 
 NEG_INF = -1e30
 
@@ -200,9 +206,8 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, q_chunk=q_chunk)
     if impl in ("kernel", "pallas"):
-        raise NotImplementedError(
-            "the prefill attention kernel (flash_attention) is not ported "
-            "yet; use impl='chunked'")
+        return FA.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

@@ -1,11 +1,12 @@
-"""Dense decoder model: init, norm, QKV projection, full attention block.
+"""Dense decoder model: init, embedding, norm, QKV projection, RoPE
+tables, full attention block.
 
 The dense-family subset of ``repro/models/transformer.py`` that the
-stateful edge-cloud path runs.  Params are a nested dict of tensors with
-the reference's keys, shapes and ``(in, out)`` layout; the per-layer
-weights are stacked on a leading L axis (``params["layers"]["attn"]["wq"]``
-is ``(L, d_model, H * head_dim)``), so a JAX param pytree converts leaf
-by leaf (``repro_torch.params``).
+stateless and stateful edge-cloud paths run.  Params are a nested dict of
+tensors with the reference's keys, shapes and ``(in, out)`` layout; the
+per-layer weights are stacked on a leading L axis
+(``params["layers"]["attn"]["wq"]`` is ``(L, d_model, H * head_dim)``), so
+a JAX param pytree converts leaf by leaf (``repro_torch.params``).
 """
 from __future__ import annotations
 
@@ -63,8 +64,19 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
     return x, (k, v), aux
 
 
+def embed_inputs(cfg, params, inputs):
+    """Token embedding (the dense family has no frontend): (B, S, D)."""
+    return params["embed"][inputs["tokens"]]
+
+
 def lm_head_weights(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _rope_for(cfg, S, offset=0, device=None):
+    """RoPE tables of positions ``offset .. offset + S - 1``."""
+    pos = offset + torch.arange(S, device=device)
+    return Lyr.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------

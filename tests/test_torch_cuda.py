@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the flash-decode kernel against its plain
-version, and a short kernel-routed decode against the reference route.
+"""The port on a CUDA device: the flash-decode and flash-attention kernels
+against their plain versions, a short kernel-routed decode against the
+reference route, and the stateless pipeline on the prefill kernel.
 Imports only torch and the port, so it also runs where JAX is absent.
 Every test here needs the card and skips without it:
 
@@ -15,7 +16,11 @@ torch.set_num_threads(2)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.network import NetworkModel  # noqa: E402
 from repro_torch.core.stateful import make_stateful_manager  # noqa: E402
+from repro_torch.core.stages import StageRunner  # noqa: E402
+from repro_torch.core.switching import PipelineManager  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import flash_decode as FD  # noqa: E402
+from repro_torch.models.transformer import init_model  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -87,3 +92,83 @@ def test_kernel_route_matches_reference_route(cuda):
         assert (a - b).abs().max().item() <= 5e-4
     km.close()
     rm.close()
+
+
+# tests/test_kernels.py's shape grid (non-causal) and mask cases, and the
+# served prefill shape
+FA_SHAPES = [(1, 16, 16, 2, 2, 16), (2, 64, 64, 4, 2, 32),
+             (1, 40, 40, 4, 4, 16), (2, 32, 32, 8, 1, 64),
+             (1, 33, 65, 2, 2, 8)]
+FA_MASKS = [(True, None, 0), (True, 48, 0), (False, 24, 0), (True, None, 7)]
+
+
+def _fa_compare(cuda, B, Sq, Sk, H, KH, D, dtype, **kw):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda, dtype=dtype)
+    k = torch.randn(B, Sk, KH, D, generator=g, device=cuda, dtype=dtype)
+    v = torch.randn(B, Sk, KH, D, generator=g, device=cuda, dtype=dtype)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    # bf16: 1% of max|plain|, one rounding step (2**-7 of a value) at most
+    tol = 1e-2 * want.float().abs().max().item() \
+        if dtype == torch.bfloat16 else 1e-4
+    assert out.shape == want.shape and out.dtype == dtype
+    assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", FA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_matches_plain_shapes(cuda, B, Sq, Sk, H, KH, D,
+                                             dtype):
+    _fa_compare(cuda, B, Sq, Sk, H, KH, D, dtype, causal=False)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", FA_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_matches_plain_masks(cuda, causal, window, q_offset,
+                                            dtype):
+    _fa_compare(cuda, 2, 64, 64 + q_offset, 4, 2, 32, dtype, causal=causal,
+                window=window, q_offset=q_offset)
+
+
+def test_prefill_kernel_full_width_and_strided(cuda):
+    _fa_compare(cuda, 1, 1024, 1024, 16, 2, 128, torch.bfloat16,
+                causal=True)
+    # k/v as sequence-major views of heads-major tensors: strides, no copy
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 100, 16, 128, generator=g, device=cuda)
+    k = torch.randn(1, 2, 100, 128, generator=g, device=cuda)
+    v = torch.randn(1, 2, 100, 128, generator=g, device=cuda)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    out = FA.flash_attention(q, kt, vt)
+    want = FA.flash_attention_plain(q, kt, vt)
+    assert (out - want).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, kt, vt[..., :64].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q[..., :96], kt[..., :96], vt[..., :96])
+
+
+def test_stateless_pipeline_on_prefill_kernel(cuda):
+    cfg = get_config("qwen2.5-3b").reduced()
+    runner = StageRunner(cfg, init_model(cfg, device=cuda),
+                         attn_impl="kernel", device=cuda)
+    tokens = {"tokens": torch.randint(0, cfg.vocab_size, (1, 48),
+                                      device=cuda)}
+    mgr = PipelineManager(runner, split=1, net=NetworkModel(20.0),
+                          sample_inputs=tokens, standby_split=2)
+    before = FA.flash_attention.launches
+    ref, _ = mgr.serve(tokens)
+    assert FA.flash_attention.launches == before + cfg.num_layers
+    plain = StageRunner(cfg, runner.params, device=cuda)
+    want = plain.run_units(tokens, 0, plain.num_units)["logits"]
+    assert (ref - want).abs().max().item() <= 1e-4
+    for strategy, split in [("switch_b2", 0), ("switch_a", 2),
+                            ("pause_resume", 1)]:
+        mgr.repartition(strategy, split)
+        out, _ = mgr.serve(tokens)
+        assert torch.equal(out, ref), strategy
+    mgr.close()

@@ -1,0 +1,179 @@
+"""Port of flash_attention: the plain PyTorch version and
+``attention(impl="kernel")`` against the JAX package's Pallas kernel
+(interpret mode on the CPU) over the reference's shape grid and mask cases,
+the wrapper's refusals, and its tile and grid plan.  The CUDA kernel itself
+is held against the plain version in tests/test_torch_cuda.py and
+chip_smoke.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash_attention  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.models import layers as Lyr  # noqa: E402
+
+# tests/test_kernels.py's shape grid and mask cases
+SHAPES = [
+    (1, 16, 16, 2, 2, 16),
+    (2, 64, 64, 4, 2, 32),
+    (1, 40, 40, 4, 4, 16),     # padding (40 % 16 != 0)
+    (2, 32, 32, 8, 1, 64),     # MQA
+    (1, 33, 65, 2, 2, 8),      # cross lengths + padding
+]
+MASKS = [(True, None, 0), (True, 48, 0), (False, 24, 0), (True, None, 7)]
+
+
+def _tol(dtype):
+    """tests/test_kernels.py's ``_tol``."""
+    return 2e-2 if dtype == "bfloat16" else 1e-4
+
+
+def _inputs(B, Sq, Sk, H, KH, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, KH, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, KH, D), dtype=np.float32))
+
+
+def _both(arrays, dtype):
+    """The same numbers in both frameworks (bf16 rounds identically)."""
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return ([jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_shapes(B, Sq, Sk, H, KH, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KH, D), dtype)
+    want = jax_flash_attention(jq, jk, jv, causal=False, block_q=16,
+                               block_k=16)
+    got = FA.flash_attention_plain(tq, tk, tv, causal=False)
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, H, D)
+    _close(got, want, _tol(dtype))
+    routed = Lyr.attention(tq, tk, tv, causal=False, impl="kernel")
+    assert torch.equal(routed, got)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", MASKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_masks(causal, window, q_offset, dtype):
+    B, Sq, H, KH, D = 2, 64, 4, 2, 32
+    Sk = Sq + q_offset
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KH, D, seed=1),
+                                       dtype)
+    want = jax_flash_attention(jq, jk, jv, causal=causal, window=window,
+                               q_offset=q_offset, block_q=16, block_k=16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = FA.flash_attention_plain(tq, tk, tv, **kw)
+    _close(got, want, _tol(dtype))
+    for impl in ("kernel", "pallas"):
+        assert torch.equal(Lyr.attention(tq, tk, tv, impl=impl, **kw), got)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", MASKS)
+def test_plain_matches_chunked(causal, window, q_offset):
+    """The port's two prefill routes agree (the stateful runner's default
+    and its kernel route)."""
+    B, Sq, H, KH, D = 1, 150, 4, 2, 16
+    _, (tq, tk, tv) = _both(_inputs(B, Sq, Sq + q_offset, H, KH, D, seed=2),
+                            "float32")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(
+        FA.flash_attention_plain(tq, tk, tv, **kw).numpy(),
+        Lyr.chunked_attention(tq, tk, tv, q_chunk=64, kv_chunk=32,
+                              **kw).numpy(), atol=1e-5)
+
+
+def test_refusals():
+    q, k, v = (torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16),
+               torch.zeros(1, 8, 2, 16))
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        FA.flash_attention(torch.zeros(1, 8, 3, 16), k, v)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v[:, :4])
+    with pytest.raises(ValueError, match="window"):
+        FA.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        FA.flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # what the kernel itself refuses (checked before any launch)
+    FA._check_launchable(q, k, v)
+    for D in (24, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            FA._check_launchable(torch.zeros(1, 8, 4, D),
+                                 torch.zeros(1, 8, 2, D),
+                                 torch.zeros(1, 8, 2, D))
+    with pytest.raises(ValueError, match="last dimension"):
+        FA._check_launchable(torch.zeros(1, 8, 16, 4).transpose(2, 3), k, v)
+    odd = torch.zeros(1, 8, 2, 18)[..., :16]        # rows 72 bytes apart
+    with pytest.raises(ValueError, match="16 bytes"):
+        FA._check_launchable(q, odd, v)
+    with pytest.raises(ValueError, match="aligned"):
+        FA._check_launchable(q, k, torch.zeros(1 * 8 * 2 * 16 + 1)[1:]
+                             .reshape(1, 8, 2, 16))
+    # strided views the kernel does take: a head-major tensor seen
+    # sequence-major (the reference's layout copy is not needed)
+    FA._check_launchable(q, torch.zeros(1, 2, 8, 16).transpose(1, 2), v)
+
+
+def test_grid_and_tile_plan():
+    # the served prefill: 16 q tiles x 16 heads = 256 blocks
+    assert FA.grid_plan(1, 1024, 16) == (16, 16)
+    assert FA.grid_plan(2, 33, 4) == (8, 1)
+    # causal: q tile i walks key tiles [0, i] when Sq == Sk
+    for i in range(16):
+        assert FA.key_tiles(i, 1024, 1024, causal=True, window=None,
+                            q_offset=0) == (0, i + 1)
+    # non-causal walks every key tile; a ragged Sk rounds up
+    assert FA.key_tiles(0, 33, 65, causal=False, window=None,
+                        q_offset=0) == (0, 2)
+    # a window starts at the tile of the first row's first live key
+    assert FA.key_tiles(3, 256, 256, causal=True, window=48,
+                        q_offset=0) == (2, 4)
+    # q_offset shifts the causal limit
+    assert FA.key_tiles(0, 64, 71, causal=True, window=None,
+                        q_offset=7) == (0, 2)
+    # the bound counts live pairs: S(S+1)/2 causal
+    assert FA.live_pairs(1024, 1024, causal=True, window=None,
+                         q_offset=0) == 1024 * 1025 // 2
+    assert FA.live_pairs(64, 64, causal=False, window=24, q_offset=0) == sum(
+        64 - max(0, i - 23) for i in range(64))
+    q = torch.zeros(1, 1024, 16, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
+    assert FA.bound_flops(q, k) == 4 * 128 * 16 * 1024 * 1025 // 2
+    assert FA.bound_bytes(q, k) == (2 * q.numel() + 2 * k.numel()) * 2
+
+
+def test_walked_tiles_cover_every_live_key():
+    """The kernel's loop bounds (key_tiles) skip no live key: every live
+    (query, key) pair of the mask grid lies in a walked tile."""
+    for causal, window, q_offset in MASKS + [(False, None, 0)]:
+        Sq, Sk = 150, 150 + q_offset
+        for qt in range(-(-Sq // FA.BLOCK_Q)):
+            lo, hi = FA.key_tiles(qt, Sq, Sk, causal=causal, window=window,
+                                  q_offset=q_offset)
+            for i in range(qt * FA.BLOCK_Q, min(Sq, (qt + 1) * FA.BLOCK_Q)):
+                qpos = q_offset + i
+                for j in range(Sk):
+                    live = (not causal or j <= qpos) and (
+                        window is None or j > qpos - window)
+                    if live:
+                        assert lo <= j // FA.BLOCK_K < hi, (qt, i, j)

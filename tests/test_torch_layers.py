@@ -107,11 +107,12 @@ def test_attention_dispatch():
     q, k, v = _rand(1, 6, 4, 8), _rand(1, 6, 2, 8, seed=1), \
         _rand(1, 6, 2, 8, seed=2)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    for impl in ("naive", "chunked"):
+    for impl in ("naive", "chunked", "pallas"):
         _close(TL.attention(tq, tk, tv, impl=impl),
                JL.attention(*map(jnp.asarray, (q, k, v)), impl=impl))
-    with pytest.raises(NotImplementedError):
-        TL.attention(tq, tk, tv, impl="kernel")
+    # "kernel" is the port's name of the same route
+    assert torch.equal(TL.attention(tq, tk, tv, impl="kernel"),
+                       TL.attention(tq, tk, tv, impl="pallas"))
     with pytest.raises(ValueError):
         TL.attention(tq, tk, tv, impl="nope")
 
