@@ -10,47 +10,62 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (one nvcc per source, all started together).
 3. kernel    — holds each kernel against its plain PyTorch version on the
                card.  flash_decode: the reference test grid, the full-width
-               decode shape, per-row pos with a dead row, size-1 pos vector
-               == scalar.  flash_attention: the reference shape grid and
-               mask cases in f32 and bf16, sequence-major views of
-               heads-major K/V (strides, no copies), and the two full-width
-               prefill shapes (1024 and 2048 tokens, causal, bf16).  Times
-               kernel, plain version and one PyTorch library call at the
-               full-width shapes, beside the least time the card could take
-               (the larger of bytes over its data-sheet memory rate and
-               operations over its data-sheet bf16 rate).
-4. slice     — serves full-width qwen2.5-3b (all 36 layers) in bf16 (random
-               weights from a seeded generator) through the edge-cloud
-               decode pipeline with the prefill and the recompute arm on
-               the flash-attention kernel, repartitions live under
-               switch_b2, switch_a and pause_resume, checks the decode
-               kernel ran in every attention layer of every decode step,
-               the prefill kernel in every layer of the prefill and of
-               every moved layer of a recompute hand-off, the paper's
+               decode shapes (qwen2.5-3b's and zamba2-7b's D 112), per-row
+               pos with a dead row, size-1 pos vector == scalar.
+               flash_attention: the reference shape grid and mask cases in
+               f32 and bf16, D 112, sequence-major views of heads-major K/V
+               (strides, no copies), and the full-width prefill shapes of
+               both models (1024 and 2048 tokens, causal, bf16).
+               mamba1_scan and ssd_scan: the reference grids in f32 and
+               bf16 with and without h0, state continuation, and the
+               full-width decode step (S = 1), prompt (S = 1024) and the
+               recompute arm's scan (S = 2048, dt masked past 1024, whose
+               state must equal the 1024-step scan's).  Times kernel, plain
+               version and, where one exists, one PyTorch library call at
+               the full-width shapes, beside the least time the card could
+               take (the larger of bytes over its data-sheet memory rate
+               and operations over its data-sheet rate for their type).
+4. slice     — for each of full-width qwen2.5-3b (36 layers),
+               falcon-mamba-7b (64 mamba1 layers) and zamba2-7b (81 mamba2
+               layers, 13 shared-attention applications), in bf16 with
+               random weights from a seeded generator: serves the
+               edge-cloud decode pipeline (prompt 1024, max_seq 2048) with
+               every scan, the prefill and the recompute arm on the
+               kernels, repartitions live through 1/2 -> 1/4 -> 1/2 -> 3/4
+               of the depth under switch_b2, switch_a and pause_resume,
+               and checks every kernel's launches per decode step, per
+               prefill forward and per recompute hand-off, the paper's
                downtime ordering, finite logits, and that an unswitched
                session fed the same tokens gives the same logits.
 5. handoff   — both hand-off arms on the card: a switch pinned to the
                transfer arm must leave the logits bit-equal to the
                unswitched session's; after a switch pinned to the recompute
-               arm, the moved layers' KV is held against the KV the decode
-               steps wrote and the logits against the unswitched session's,
-               and planted faults (stale and lost KV in the moved layers)
-               are read the same way and must fail the KV limit.
-6. stateless — the quickstart path at full width: one 1024-token prompt
-               served through the stateless edge-cloud pipeline
-               (``StageRunner`` on the flash-attention kernel), then
-               repartitioned under switch_b2, switch_a and pause_resume
-               with a request after each; checks one prefill-kernel launch
-               per layer of every request, the downtime ordering, and
-               logits bit-equal to the first request's after every switch.
-7. report    — prints the ``kernels`` JSON line, the card's nvidia-smi line,
-               and as the last line ``{"ok": true, "device": {...}}``.
+               arm, the moved layers' state (KV, conv, SSM) is held against
+               the state the decode steps wrote and the logits against the
+               unswitched session's, and planted faults (the moved layers'
+               state stale by 8 steps, and lost) are read the same way and
+               must fail the limit (on the SSM state where there is one).
+6. stateless — one 1024-token prompt served through the stateless
+               edge-cloud pipeline (``StageRunner``), then repartitioned
+               under switch_b2, switch_a and pause_resume with a request
+               after each; checks each kernel's launches per request, the
+               downtime ordering, and logits bit-equal to the first
+               request's after every switch.  pause_resume reloads phase
+               4's checkpoint of the whole model from ``$TMPDIR`` (6.2 GB
+               for qwen2.5-3b, ~14.5 GB for falcon-mamba-7b, ~13.5 GB for
+               zamba2-7b; its free space is checked first), deleted after
+               the model's phases.
+7. report    — prints the script's wall, the ``kernels`` JSON line, the
+               card's nvidia-smi line, and as the last line
+               ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import os
@@ -70,11 +85,12 @@ BF16_RTOL = 1e-2
 # it computes the same function, not as the kernel under test
 LIB_RTOL = 5e-2
 # after a recompute hand-off, against the unswitched session: the logits
-# (end to end, 5% of the largest logit) and the moved layers' KV (5% of
-# the largest |KV|; the recompute's prefill-shaped matmuls round otherwise
-# than the decode steps', by under 1% on the card)
+# (end to end, 5% of the largest logit) and the moved layers' state, each
+# kind (KV, conv, SSM) to 5% of its largest |value| (the recompute's
+# prefill-shaped matmuls round otherwise than the decode steps', by under
+# 1% on the card)
 LOGIT_RTOL = 5e-2
-KV_RTOL = 5e-2
+STATE_RTOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -123,6 +139,7 @@ GRID = [(2, 8, 2, 64, 32, 40), (1, 4, 4, 100, 16, 100),
         (2, 16, 8, 128, 64, 1), (1, 2, 1, 48, 8, 17),
         (2, 8, 2, 256, 32, 200)]
 FULL = dict(B=1, H=16, KH=2, S=2048, D=128)      # qwen2.5-3b decode shape
+ZFULL = dict(B=1, H=32, KH=32, S=2048, D=112)    # zamba2-7b's shared attn
 FULL_POS = (1, 17, 1024, 2048)
 TIMED_POS = 1024                                 # the served context length
 
@@ -161,6 +178,8 @@ def phase_kernel(FD, gen) -> dict:
         for pos in FULL_POS:
             compare(FULL["B"], FULL["H"], FULL["KH"], FULL["S"], FULL["D"],
                     pos, dtype)
+            compare(ZFULL["B"], ZFULL["H"], ZFULL["KH"], ZFULL["S"],
+                    ZFULL["D"], pos, dtype)
         # per-row pos with a dead row: exact zeros there
         rows = [40, 1, 0, 64]
         _, _, _, out = compare(4, 4, 2, 64, 16, rows, dtype)
@@ -176,11 +195,29 @@ def phase_kernel(FD, gen) -> dict:
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
 
-    # timing at the full-width shape, bf16, with the served context length;
-    # caches rotate over > 50 MB of copies, so every launch finds its cache
-    # out of L2 as a decode step does (36 layers' caches + 6 GB of weights
-    # stream through L2 between two visits of one layer)
-    B, H, KH, S, D = (FULL[x] for x in ("B", "H", "KH", "S", "D"))
+    timed = [time_decode(FD, rand, **FULL), time_decode(FD, rand, **ZFULL)]
+    first = timed[0]                # qwen2.5-3b's decode shape
+    row = {"name": "flash_decode_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_decode.cu",
+           "replaces": "src/repro/kernels/flash_decode.py:94",
+           "launches": None, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_dtype": errs,
+           "ms": first["ms"], "kernel_ms": first["ms"],
+           "plain_ms": first["plain_ms"], "library_ms": first["library_ms"],
+           "library_max_abs_err": first["library_max_abs_err"],
+           "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+           "timed_shape": first["shape"],
+           "timed_runs_ms": first["runs_ms"], "by_shape": timed}
+    return row
+
+
+def time_decode(FD, rand, B, H, KH, S, D) -> dict:
+    """Kernel, plain version and one library call at a full-width decode
+    shape, bf16, at the served context length, beside the bound.  Caches
+    rotate over > 128 MB of copies, so every launch finds its cache out of
+    L2 as a decode step does (a step streams every layer's weights and
+    caches through L2 between two visits of one layer)."""
+    from repro_torch.core.hardware import H100
     dtype = torch.bfloat16
     per_call = 2 * B * KH * S * D * 2
     n = max(2, -(-128 * 2 ** 20 // per_call))
@@ -214,28 +251,20 @@ def phase_kernel(FD, gen) -> dict:
     lib_ms = cuda_ms(library, iters)
     nbytes = FD.bound_bytes(qs[0], ks[0], TIMED_POS)
     flops = 4 * B * H * TIMED_POS * D
-    from repro_torch.core.hardware import H100
     t_bytes = nbytes / H100.hbm_bw * 1e3
     t_ops = flops / H100.flops * 1e3            # bf16 on the tensor cores
-    row = {"name": "flash_decode_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_decode.cu",
-           "replaces": "src/repro/kernels/flash_decode.py:94",
-           "launches": None, "max_abs_err": max(errs.values()),
-           "max_abs_err_by_dtype": errs,
-           "ms": min(kern1, kern2), "kernel_ms": min(kern1, kern2),
-           "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
-           "library_max_abs_err": lib_err,
+    out = {"shape": {"B": B, "H": H, "KH": KH, "S": S, "D": D,
+                     "pos": TIMED_POS, "dtype": "bfloat16"},
+           "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
+           "library_ms": lib_ms, "library_max_abs_err": lib_err,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "timed_shape": {"B": B, "H": H, "KH": KH, "S": S, "D": D,
-                           "pos": TIMED_POS, "dtype": "bfloat16"},
-           "timed_runs_ms": {"kernel": [kern1, kern2],
-                             "plain": [plain1, plain2]}}
-    print(f"[kernel] full-width bf16 pos={TIMED_POS}: kernel "
-          f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, library "
+           "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
+    print(f"[kernel] flash_decode full-width bf16 {out['shape']}: kernel "
+          f"{out['ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, library "
           f"{lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
-          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-    return row
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
 
 
 # tests/test_kernels.py's flash-attention shape grid (non-causal) and mask
@@ -246,6 +275,7 @@ FA_SHAPES = [(1, 16, 16, 2, 2, 16), (2, 64, 64, 4, 2, 32),
              (1, 33, 65, 2, 2, 8)]
 FA_MASKS = [(True, None, 0), (True, 48, 0), (False, 24, 0), (True, None, 7)]
 FA_FULL = dict(B=1, H=16, KH=2, D=128)
+FA_ZFULL = dict(B=1, H=32, KH=32, D=112)        # zamba2-7b's shared attn
 FA_FULL_S = (1024, 2048)
 
 
@@ -291,10 +321,13 @@ def phase_prefill_kernel(FA, gen) -> dict:
         q = rand((1, 100, 16, 128), dtype)
         k, v = rand((1, 2, 100, 128), dtype), rand((1, 2, 100, 128), dtype)
         compare(q, k.transpose(1, 2), v.transpose(1, 2), "strided K/V")
-    B, H, KH, D = (FA_FULL[x] for x in ("B", "H", "KH", "D"))
-    for S in FA_FULL_S:
-        compare(*inputs(B, S, S, H, KH, D, torch.bfloat16),
-                f"full width S={S}", causal=True)
+        # zamba2-7b's shared attention: D 112, MHA
+        compare(*inputs(1, 70, 70, 4, 4, 112, dtype), "D 112", causal=True)
+    for full in (FA_FULL, FA_ZFULL):
+        B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
+        for S in FA_FULL_S:
+            compare(*inputs(B, S, S, H, KH, D, torch.bfloat16),
+                    f"full width H={H} KH={KH} D={D} S={S}", causal=True)
     print(f"[kernel] flash_attention matches its plain version: max abs err "
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
@@ -303,7 +336,9 @@ def phase_prefill_kernel(FA, gen) -> dict:
     # > 128 MB of copies, so no launch finds its inputs in the 50 MB L2
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = []
-    for S in FA_FULL_S:
+    shapes = [(full, S) for full in (FA_FULL, FA_ZFULL) for S in FA_FULL_S]
+    for full, S in shapes:
+        B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
         per_call = 2 * B * S * (H + KH) * D
         n = max(2, -(-128 * 2 ** 20 // per_call))
         sets = [inputs(B, S, S, H, KH, D, torch.bfloat16) for _ in range(n)]
@@ -334,7 +369,8 @@ def phase_prefill_kernel(FA, gen) -> dict:
         q, k, _ = sets[0]
         t_ops = FA.bound_flops(q, k, causal=True) / H100.flops * 1e3
         t_bytes = FA.bound_bytes(q, k) / H100.hbm_bw * 1e3
-        timed.append({"S": S, "ms": min(kern1, kern2),
+        timed.append({"S": S, "H": H, "KH": KH, "D": D,
+                      "ms": min(kern1, kern2),
                       "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
                       "library_max_abs_err": lib_err,
                       "bound_ms": max(t_bytes, t_ops),
@@ -343,12 +379,14 @@ def phase_prefill_kernel(FA, gen) -> dict:
                       "runs_ms": {"kernel": [kern1, kern2],
                                   "plain": [plain1, plain2]}})
         t = timed[-1]
-        print(f"[kernel] flash_attention full-width bf16 causal S={S}: "
+        print(f"[kernel] flash_attention full-width bf16 causal H={H} "
+              f"KH={KH} D={D} S={S}: "
               f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
               f"library {lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
         del sets
-    first = timed[0]                # the served prompt's shape
+    first = timed[0]                # qwen2.5-3b's served prompt
+    B, H, KH, D = (FA_FULL[x] for x in ("B", "H", "KH", "D"))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:88",
@@ -359,70 +397,404 @@ def phase_prefill_kernel(FA, gen) -> dict:
             "library_ms": first["library_ms"],
             "timed_shape": {"B": B, "S": FA_FULL_S[0], "H": H, "KH": KH,
                             "D": D, "causal": True, "dtype": "bfloat16"},
+            "by_shape": timed}
+
+
+def tally():
+    """``(errs, rel, hold)``: ``hold(out, want, what, bf16)`` holds a
+    kernel's output against its plain version (f32 to ``FP32_ATOL``, bf16
+    to ``BF16_RTOL`` of max |plain|) and keeps the largest error by type
+    in ``errs`` and the largest bf16 error over max |plain| in ``rel``."""
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    rel = {"bfloat16": 0.0}
+
+    def hold(out, want, what, bf16):
+        check(out.shape == want.shape and out.dtype == want.dtype,
+              f"{what}: {tuple(out.shape)} {out.dtype}, want "
+              f"{tuple(want.shape)} {want.dtype}")
+        err = max_diff(out, want)
+        key = "bfloat16" if bf16 else "float32"
+        if bf16:
+            scale = want.float().abs().max().item()
+            tol = BF16_RTOL * scale
+            rel[key] = max(rel[key], err / scale if scale else 0.0)
+        else:
+            tol = FP32_ATOL
+        check(math.isfinite(err) and err <= tol,
+              f"{what}: max abs err {err} > {tol}")
+        errs[key] = max(errs[key], err)
+    return errs, rel, hold
+
+
+def time_scan(kernel, plain, n_sets: int, iters: int, plain_iters: int,
+              nbytes: int, flops: int, rate: float) -> dict:
+    """Kernel and plain version (``fn(i)`` on input set ``i % n_sets``),
+    timed plain, kernel, kernel, plain by CUDA events, beside the bound:
+    the larger of ``nbytes`` over the memory rate and ``flops`` over
+    ``rate``."""
+    from repro_torch.core.hardware import H100
+    plain1 = cuda_ms(plain, plain_iters)
+    kern1 = cuda_ms(kernel, iters)
+    kern2 = cuda_ms(kernel, iters)
+    plain2 = cuda_ms(plain, plain_iters)
+    t_bytes = nbytes / H100.hbm_bw * 1e3
+    t_ops = flops / rate * 1e3
+    return {"ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
+
+
+def scan_row(name, source, replaces, errs, timed) -> dict:
+    """The ``kernels`` line's entry of a scan: the decode step's shape
+    (S = 1, the most launches on the path) first, the prompt's beside it."""
+    first = timed[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            # no single PyTorch call computes a selective or SSD scan
+            "library_ms": None, "timed_shape": first["shape"],
             "by_seq": timed}
 
 
+# tests/test_kernels.py's mamba-scan grid (its chunk and block_d have no
+# counterpart here) and tests/test_ssd_kernel.py's SSD grid
+MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16)]
+SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
+            (2, 16, 1, 64, 32)]
+MS_FULL = dict(Di=8192, N=16, R=256)         # falcon-mamba-7b's layer
+SSD_FULL = dict(H=112, P=64, N=64)           # zamba2-7b's layer
+SCAN_S = (1, 1024)                           # a decode step, the prompt
+LIVE, PADDED = 1024, 2048                    # the recompute arm's scan
+CONT_ATOL = 1e-5                             # state continuation
+
+
+def phase_mamba_kernel(MS, gen) -> dict:
+    """mamba1_scan against its plain version: the reference grid in f32
+    and bf16 (B and C as column views of one projection, as the model's
+    split gives them), with and without h0; state continuation; the
+    full-width decode step, prompt and masked recompute scan; timings."""
+    from repro_torch.core.hardware import H100_F32_FLOPS
+    errs, rel, hold = tally()
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def inputs(B, S, Di, N, dtype, R=8):
+        dt = torch.nn.functional.softplus(rand((B, S, Di))).to(dtype)
+        dbc = rand((B, S, R + 2 * N), dtype)
+        x = rand((B, S, Di), dtype)
+        A = -torch.exp(rand((Di, N)) * 0.2)
+        return dt, dbc[..., R:R + N], dbc[..., R + N:], x, A
+
+    def compare(args, h0, what):
+        y, h = MS.mamba1_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        yw, hw = MS.mamba1_scan_plain(*args, h0=h0)
+        bf16 = args[3].dtype == torch.bfloat16
+        hold(y, yw, f"mamba1_scan y {what}", bf16)
+        hold(h, hw, f"mamba1_scan h {what}", bf16)
+        return y, h
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, Di, N in MS_GRID:
+            args = inputs(B, S, Di, N, dtype)
+            compare(args, None, f"{dtype} {(B, S, Di, N)}")
+            compare(args, rand((B, Di, N)), f"{dtype} {(B, S, Di, N)} h0")
+    # tests/test_kernels.py's continuation: [0:S] == [0:S/2] then [S/2:S]
+    args = inputs(1, 32, 32, 8, torch.float32)
+    y_full, h_full = MS.mamba1_scan(*args)
+    y1, h1 = MS.mamba1_scan(*(a[:, :16] for a in args[:4]), args[4])
+    y2, h2 = MS.mamba1_scan(*(a[:, 16:] for a in args[:4]), args[4], h0=h1)
+    cont = max(max_diff(torch.cat([y1, y2], 1), y_full),
+               max_diff(h2, h_full))
+    check(cont <= CONT_ATOL, f"mamba1_scan continuation differs by {cont}")
+    Di, N, R = (MS_FULL[k] for k in ("Di", "N", "R"))
+    for S in SCAN_S:
+        compare(inputs(1, S, Di, N, torch.bfloat16, R),
+                rand((1, Di, N)) if S == 1 else None, f"full width S={S}")
+    # the recompute arm: dt = 0 past the live length leaves h as it was
+    dt, Bc, Cc, x, A = inputs(1, PADDED, Di, N, torch.bfloat16, R)
+    dt[:, LIVE:] = 0
+    _, h_pad = compare((dt, Bc, Cc, x, A), None, f"masked S={PADDED}")
+    _, h_live = MS.mamba1_scan(dt[:, :LIVE], Bc[:, :LIVE], Cc[:, :LIVE],
+                               x[:, :LIVE], A)
+    check(torch.equal(h_pad, h_live), "mamba1_scan: masked steps moved h")
+    print(f"[kernel] mamba1_scan matches its plain version: max abs err "
+          f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
+          f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|); "
+          f"continuation {cont:.3e} (limit {CONT_ATOL}); masked scan's "
+          f"state equal to the live one's")
+
+    timed = []
+    for S in SCAN_S:
+        one = inputs(1, S, Di, N, torch.bfloat16, R)
+        h0 = rand((1, Di, N)) if S == 1 else None
+        nbytes = MS.bound_bytes(one[0], one[1], one[3], h0 is not None)
+        n = max(2, -(-128 * 2 ** 20 // nbytes))
+        sets = [one] + [inputs(1, S, Di, N, torch.bfloat16, R)
+                        for _ in range(n - 1)]
+        h0s = [h0 if h0 is None else rand((1, Di, N)) for _ in range(n)]
+        t = time_scan(
+            lambda i: MS.mamba1_scan(*sets[i % n], h0=h0s[i % n]),
+            lambda i: MS.mamba1_scan_plain(*sets[i % n], h0=h0s[i % n]),
+            n, 200 if S == 1 else 20, 20 if S == 1 else 2, nbytes,
+            MS.bound_flops(one[3], one[1]), H100_F32_FLOPS)
+        t["shape"] = {"B": 1, "S": S, "Di": Di, "N": N, "dtype": "bfloat16",
+                      "h0": h0 is not None}
+        timed.append(t)
+        print(f"[kernel] mamba1_scan full-width bf16 S={S}: kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+        del sets, h0s
+    return scan_row("mamba1_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                    "src/repro/kernels/mamba_scan.py:53", errs, timed)
+
+
+def phase_ssd_kernel(SD, gen) -> dict:
+    """ssd_scan against its plain version: the reference grid in f32 and
+    bf16 (x, B and C as column views of one projection, as the model's
+    split gives them), with and without h0; state continuation; the
+    full-width decode step, prompt and masked recompute scan; timings."""
+    from repro_torch.core.hardware import H100
+    errs, rel, hold = tally()
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def inputs(B, S, H, P, N, dtype):
+        dt = torch.nn.functional.softplus(rand((B, S, H)))
+        xbc = rand((B, S, H * P + 2 * N), dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        A = -torch.exp(rand((H,)) * 0.3)
+        return dt, xbc[..., H * P:H * P + N], xbc[..., H * P + N:], x, A
+
+    def compare(args, h0, what):
+        y, h = SD.ssd_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        yw, hw = SD.ssd_scan_plain(*args, h0=h0)
+        bf16 = args[3].dtype == torch.bfloat16
+        hold(y, yw, f"ssd_scan y {what}", bf16)
+        hold(h, hw, f"ssd_scan h {what}", bf16)
+        return y, h
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, N in SSD_GRID:
+            args = inputs(B, S, H, P, N, dtype)
+            # the reference grid's dt is in the input dtype
+            args = (args[0].to(dtype),) + args[1:]
+            compare(args, None, f"{dtype} {(B, S, H, P, N)}")
+            compare(args, rand((B, H, P, N)),
+                    f"{dtype} {(B, S, H, P, N)} h0")
+    # tests/test_ssd_kernel.py's continuation: [0:32] == [0:16], [16:32]
+    args = inputs(1, 32, 2, 8, 4, torch.float32)
+    y_full, h_full = SD.ssd_scan(*args)
+    y1, h1 = SD.ssd_scan(*(a[:, :16] for a in args[:4]), args[4])
+    y2, h2 = SD.ssd_scan(*(a[:, 16:] for a in args[:4]), args[4], h0=h1)
+    cont = max(max_diff(torch.cat([y1, y2], 1), y_full),
+               max_diff(h2, h_full))
+    check(cont <= CONT_ATOL, f"ssd_scan continuation differs by {cont}")
+    H, P, N = (SSD_FULL[k] for k in ("H", "P", "N"))
+    for S in SCAN_S:
+        compare(inputs(1, S, H, P, N, torch.bfloat16),
+                rand((1, H, P, N)) if S == 1 else None, f"full width S={S}")
+    dt, Bc, Cc, x, A = inputs(1, PADDED, H, P, N, torch.bfloat16)
+    dt[:, LIVE:] = 0
+    _, h_pad = compare((dt, Bc, Cc, x, A), None, f"masked S={PADDED}")
+    _, h_live = SD.ssd_scan(dt[:, :LIVE], Bc[:, :LIVE], Cc[:, :LIVE],
+                            x[:, :LIVE], A)
+    check(torch.equal(h_pad, h_live), "ssd_scan: masked steps moved h")
+    print(f"[kernel] ssd_scan matches its plain version: max abs err "
+          f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
+          f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|); "
+          f"continuation {cont:.3e} (limit {CONT_ATOL}); masked scan's "
+          f"state equal to the live one's")
+
+    timed = []
+    for S in SCAN_S:
+        one = inputs(1, S, H, P, N, torch.bfloat16)
+        h0 = rand((1, H, P, N)) if S == 1 else None
+        nbytes = SD.bound_bytes(one[0], one[1], one[3], h0 is not None)
+        n = max(2, -(-128 * 2 ** 20 // nbytes))
+        sets = [one] + [inputs(1, S, H, P, N, torch.bfloat16)
+                        for _ in range(n - 1)]
+        h0s = [h0 if h0 is None else rand((1, H, P, N)) for _ in range(n)]
+        # bf16 inputs: the chunked form's products could run on the
+        # tensor cores, so the least time takes their rate
+        t = time_scan(
+            lambda i: SD.ssd_scan(*sets[i % n], h0=h0s[i % n]),
+            lambda i: SD.ssd_scan_plain(*sets[i % n], h0=h0s[i % n]),
+            n, 200 if S == 1 else 20, 20 if S == 1 else 2, nbytes,
+            SD.bound_flops(one[3], one[1]), H100.flops)
+        t["shape"] = {"B": 1, "S": S, "H": H, "P": P, "N": N,
+                      "dtype": "bfloat16", "h0": h0 is not None}
+        timed.append(t)
+        print(f"[kernel] ssd_scan full-width bf16 S={S}: kernel "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+        del sets, h0s
+    return scan_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:67", errs, timed)
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# launch counts of the main paths
+# ---------------------------------------------------------------------------
+
+class Counts:
+    """The kernels' launch counters (``fn.launches`` of each wrapper),
+    read together by kernel name."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+
+    def reset(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.wrappers.items()}
+
+    def since(self, before: dict) -> dict:
+        now = self.read()
+        return {name: now[name] - before[name] for name in now}
+
+
+@contextlib.contextmanager
+def counted(K: Counts, obj, name: str, log: list):
+    """Append to ``log`` the kernel launches of every call of ``obj.name``
+    (a class's method or an instance's) while the context is open."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        before = K.read()
+        out = fn(*args, **kwargs)
+        log.append(K.since(before))
+        return out
+    setattr(obj, name, wrapper)
+    try:
+        yield log
+    finally:
+        if isinstance(obj, type):
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
+
+
+def shut(mgr) -> None:
+    """Stop a manager's pool and close every pipeline it built, so that
+    its weight copies (a Scenario-A standby owns one, pause_resume reloads
+    one) are freed now: the pool's objects refer to each other, and the
+    garbage collector would find them late."""
+    mgr.close()
+    for key in list(mgr.pool.keys()):
+        mgr.pool.get(key).pipeline.close()
+
+
+def expected(K: Counts, cfg, lo: int, hi: int, mode: str) -> dict:
+    """Launches one pass over layers [lo, hi) must make: ``mode`` "decode"
+    (one token) or "full" (a prefill, a recompute or a stateless request):
+    one attention kernel per attention unit (flash_decode in a decode step,
+    flash_attention in a full pass; the hybrid family's shared-attention
+    applications among them) and one scan kernel per mamba layer."""
+    from repro_torch.core.stateful import unit_index_of_split, unit_list
+    units = unit_list(cfg)[unit_index_of_split(cfg, lo):
+                           unit_index_of_split(cfg, hi)]
+    attn = sum(1 for kind, _ in units if kind == "app"
+               or cfg.family == "dense")
+    out = dict.fromkeys(K.wrappers, 0)
+    out["flash_decode_attention" if mode == "decode"
+        else "flash_attention"] = attn
+    if len(units) > attn:
+        out["mamba1_scan" if cfg.ssm.kind == "mamba1"
+            else "ssd_scan"] = len(units) - attn
+    return out
+
+
+def scaled(counts: dict, k: int) -> dict:
+    return {name: k * n for name, n in counts.items()}
+
+
+def device_kernels(cfg) -> tuple:
+    """Names of the CUDA kernels of the family's main path (profiler)."""
+    names = ["flash_attention_kernel", "decode_split_kernel",
+             "decode_combine_kernel"]
+    if cfg.ssm is not None:
+        names.append("mamba1_scan_kernel" if cfg.ssm.kind == "mamba1"
+                     else "ssd_scan_kernel")
+    return tuple(names)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the stateful decode path
 # ---------------------------------------------------------------------------
 
 PROMPT, MAX_SEQ = 1024, 2048
 
 
-def phase_slice(FD, FA, cfg, params, kw) -> tuple:
+def phase_slice(K, cfg, params, kw, splits) -> tuple:
+    """Prompt ``PROMPT``, ``max_seq`` ``MAX_SEQ``, 16 decode steps at
+    ``splits[0]``, then switch_b2, switch_a and pause_resume through
+    ``splits[1:]`` with 8 steps after each, on a 5 Mbps link after the
+    first 16 steps; checks every kernel's launches per decode step, per
+    prefill forward and per recompute hand-off, the downtime ordering,
+    finite logits, and an unswitched session fed the same tokens."""
     from repro_torch.core.network import NetworkModel
-    from repro_torch.core.stateful import make_stateful_manager
+    from repro_torch.core.stateful import DecodeSession, make_stateful_manager
 
     L = cfg.num_layers
-    splits = [L // 2, L // 4, L // 2, (3 * L) // 4]   # 18, 9, 18, 27
+    per_step = expected(K, cfg, 0, L, "decode")
+    per_forward = expected(K, cfg, 0, L, "full")
     # --- the main path, with the launch counts read around it ---------
-    FD.flash_decode_attention.launches = 0
-    FA.flash_attention.launches = 0
+    K.reset()
     sw = time.perf_counter()
-    mgr, session = make_stateful_manager(cfg, params, split=splits[0], **kw)
+    with counted(K, DecodeSession, "prefill", []) as prefills:
+        mgr, session = make_stateful_manager(cfg, params, split=splits[0],
+                                             **kw)
     check(mgr.runner.resolved_decode_impl == "kernel",
           f"decode_impl auto resolved to {mgr.runner.resolved_decode_impl}")
     # DecodeSession.prefill runs the stack twice (the second run times the
-    # host's recompute throughput, as the reference's does): one prefill-
-    # kernel launch per layer each time, and no other full-sequence pass
-    prefill = FA.flash_attention.launches
-    check(prefill == 2 * L, f"the prefill launched the prefill kernel "
-                            f"{prefill} times, want {2 * L} (2 x {L} layers)")
-    print(f"[slice] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, bf16, prompt "
-          f"{PROMPT}, max_seq {MAX_SEQ}; set-up "
-          f"{time.perf_counter() - sw:.2f} s")
+    # host's recompute throughput, as the reference's does)
+    check(prefills == [scaled(per_forward, 2)],
+          f"the prefill launched {prefills}, want "
+          f"{scaled(per_forward, 2)} (two forwards)")
+    print(f"[slice] {cfg.name}: {L} layers, d_model {cfg.d_model}, bf16, "
+          f"prompt {PROMPT}, max_seq {MAX_SEQ}; set-up "
+          f"{time.perf_counter() - sw:.2f} s; prefill launched "
+          f"{prefills[0]}")
 
     logits_seen = []
     step_ms = []            # edge + cloud wall of a step, unscaled
-    per_step = []           # kernel launches counted in each checked step
+    recomputes = []         # launches of each recompute hand-off
 
     def serve(n: int, per_step_check: bool):
         edge_scale = mgr.active.edge_scale
         for _ in range(n):
-            before = FD.flash_decode_attention.launches
+            before = K.read()
             logits, timing = mgr.serve(None)
             step_ms.append((timing.t_edge / edge_scale + timing.t_cloud)
                            * 1e3)
             if per_step_check:
-                got = FD.flash_decode_attention.launches - before
-                check(got == L, f"decode step launched the kernel {got} "
-                                f"times, want {L} (one per layer)")
-                per_step.append(got)
+                got = K.since(before)
+                check(got == per_step, f"a decode step launched {got}, "
+                                       f"want {per_step}")
             logits_seen.append(logits.float().cpu())
 
-    recompute = []          # prefill-kernel launches of each switch
-
     def repartition(strategy, split):
-        before = FA.flash_attention.launches
-        rep = mgr.repartition(strategy, split)
-        got = FA.flash_attention.launches - before
-        moved = abs(rep.new_split - rep.old_split)
-        want = moved if rep.handoff_mode == "recompute" else 0
-        check(got == want, f"{strategy} {rep.old_split} -> {rep.new_split} "
-                           f"({rep.handoff_mode}) launched the prefill "
-                           f"kernel {got} times, want {want}")
-        recompute.append(got)
+        log = []
+        with counted(K, session, "recompute_layers", log):
+            rep = mgr.repartition(strategy, split)
+        lo = min(rep.old_split, rep.new_split)
+        hi = max(rep.old_split, rep.new_split)
+        want = [expected(K, cfg, lo, hi, "full")] \
+            if rep.handoff_mode == "recompute" else []
+        check(log == want, f"{strategy} {rep.old_split} -> {rep.new_split} "
+                           f"({rep.handoff_mode}): the hand-off launched "
+                           f"{log}, want {want}")
+        recomputes.extend(log)
         return rep
 
     t0 = time.perf_counter()
@@ -436,28 +808,25 @@ def phase_slice(FD, FA, cfg, params, kw) -> tuple:
     rep_pr = repartition("pause_resume", splits[3])
     serve(8, per_step_check=True)
     mgr.drain()
-    launches = FD.flash_decode_attention.launches
-    fa_launches = FA.flash_attention.launches
+    launches = K.read()
     wall = time.perf_counter() - t0
-    check(launches >= 40 * L, f"kernel launched {launches} times over 40 "
-                              f"decode steps of {L} layers")
-    check(fa_launches == prefill + sum(recompute),
-          f"prefill kernel launched {fa_launches} times, want {prefill} + "
-          f"{recompute}")
+    for name, n in per_step.items():
+        check(launches[name] >= 40 * n, f"{name} launched {launches[name]} "
+                                        f"times over 40 decode steps")
     for rep in (rep_b2, rep_a, rep_pr):
         print(f"[slice] {rep.strategy}: split {rep.old_split} -> "
               f"{rep.new_split}, downtime {rep.downtime:.6f} s, hand-off "
               f"{rep.handoff_mode} ({rep.t_handoff:.6f} s, "
               f"{rep.handoff_bytes} B)")
-    print(f"[slice] prefill kernel: {prefill} launches in the prefill, "
-          f"{recompute} in the three switches' hand-offs")
+    print(f"[slice] launches: {launches} on the path; per decode step "
+          f"{per_step}; hand-offs' recomputes {recomputes}")
     check(rep_pr.downtime > rep_b2.downtime > rep_a.downtime,
           "downtime ordering pause_resume > switch_b2 > switch_a violated")
     check(all(bool(torch.isfinite(x).all()) for x in logits_seen),
           "non-finite logits")
     ckpt = mgr.pool.checkpoint_path       # phase 6 reloads it too
     tokens = session.tokens.clone()
-    mgr.close()
+    shut(mgr)
 
     # --- an unswitched session fed the same tokens --------------------
     ref, ref_session = make_stateful_manager(cfg, params, split=splits[0],
@@ -469,25 +838,24 @@ def phase_slice(FD, FA, cfg, params, kw) -> tuple:
         feed = {"token": tokens[:, PROMPT + i:PROMPT + 1 + i]}
         if i == 16:
             logits, prof = profile_step(lambda: ref.serve(feed)[0],
-                                        request_bound_ms(params, 1),
-                                        ("decode_split_kernel",
-                                         "decode_combine_kernel"))
+                                        request_bound_ms(cfg, params, 1),
+                                        device_kernels(cfg))
         else:
             logits, _ = ref.serve(feed)
         ref_logits.append(logits.float().cpu())
         diffs.append(max_diff(ref_logits[-1], logits_seen[i]))
-    ref.close()
+    shut(ref)
     scale = max(x.abs().max().item() for x in logits_seen)
     pre = max(diffs[:16])
     post = max(diffs[16:])
     print(f"[slice] unswitched session: max |logit diff| before the first "
           f"switch {pre:.3e}, after {post:.3e} (max |logit| {scale:.3e})")
     # before any switch both streams run the same kernels on the same
-    # inputs: bit-exact.  The recompute arm re-prefills the moved layers'
-    # KV with prefill-shaped matmuls whose bf16 rounding differs from the
-    # decode steps', so after it the logits agree to bf16 precision only
-    # (phase 5 holds the recomputed KV itself to a limit that planted
-    # faults fail).
+    # inputs: bit-exact.  The recompute arm rebuilds the moved layers'
+    # state with prefill-shaped matmuls whose bf16 rounding differs from
+    # the decode steps', so after it the logits agree to bf16 precision
+    # only (phase 5 holds the recomputed state itself to a limit that
+    # planted faults fail).
     check(pre == 0.0, f"logits differ before any switch: {pre}")
     check(post <= LOGIT_RTOL * scale, f"logits after switches differ by "
                                       f"{post} (> {LOGIT_RTOL} of {scale})")
@@ -495,11 +863,9 @@ def phase_slice(FD, FA, cfg, params, kw) -> tuple:
     print(f"[slice] decode step (edge + cloud wall, split {splits[0]}): "
           f"median {med:.3f} ms over the first 16 steps; profiled step: "
           f"{prof}")
-    check(len(set(per_step)) == 1, f"launches per step vary: {per_step}")
-    out = {"launches": launches, "launches_per_step": per_step[0],
-           "prefill_kernel_launches": fa_launches,
-           "prefill_kernel_launches_in_prefill": prefill,
-           "prefill_kernel_launches_per_switch": recompute,
+    out = {"launches": launches, "launches_per_step": per_step,
+           "launches_per_prefill": prefills[0],
+           "launches_per_recompute": recomputes,
            "wall_s": wall, "step_ms_median_first16": med, "step_ms": step_ms,
            "profiled_step": prof,
            "downtime_s": {"switch_b2": rep_b2.downtime,
@@ -513,19 +879,33 @@ def phase_slice(FD, FA, cfg, params, kw) -> tuple:
     return out, tokens, ref_logits, ckpt
 
 
-def request_bound_ms(params, tokens: int, attn_flops: int = 0) -> float:
+def request_bound_ms(cfg, params, tokens: int, extra_flops: int = 0) -> float:
     """Least time the card could take for one request of ``tokens`` tokens:
     the larger of every weight read once from device memory and the
-    matrix products' operations (2 a weight a token, the tied embedding as
-    the LM head; ``attn_flops`` for the attention) at the bf16 peak."""
+    matrix products' operations (2 a weight a token: every layer matrix,
+    the shared block's once per application, the LM head; plus
+    ``extra_flops``, the attention's) at the bf16 peak."""
     from repro_torch.core.hardware import H100
     from repro_torch.core.stages import tree_leaves
-    weights = tree_leaves(params)
-    nbytes = sum(t.numel() * t.element_size() for t in weights)
-    # the stacked layer matrices and the (tied) head; norm scales are 1-D
-    matmul = sum(t.numel() for t in tree_leaves(params["layers"])
-                 if t.dim() == 3) + params["embed"].numel()
-    flops = 2 * tokens * matmul + attn_flops
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    not_products = ("A_log", "conv_w")
+
+    def matrices(tree, dims):
+        return sum(t.numel() for k, t in flat(tree)
+                   if t.dim() == dims and k not in not_products)
+
+    def flat(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v)
+            else:
+                yield k, v
+    matmul = matrices(params["layers"], 3)
+    if "shared" in params:
+        matmul += matrices(params["shared"], 2) * (cfg.num_layers
+                                                   // cfg.hybrid_period)
+    matmul += params.get("lm_head", params["embed"]).numel()
+    flops = 2 * tokens * matmul + extra_flops
     return max(nbytes / H100.hbm_bw, flops / H100.flops) * 1e3
 
 
@@ -559,15 +939,16 @@ def profile_step(call, bound_ms, kernel_keys):
               if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events)
-    kern = sum(e.self_device_time_total for e in events
-               if any(name in e.key for name in kernel_keys))
+    by_kernel = {key: sum(e.self_device_time_total for e in events
+                          if key in e.key) / 1e3 for key in kernel_keys}
+    kern = sum(by_kernel.values()) * 1e3
     bound_us = bound_ms * 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
     return logits, {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
-        "kernel_device_ms": kern / 1e3,
+        "kernel_device_ms": kern / 1e3, "kernel_device_ms_by_name": by_kernel,
         "kernel_share_of_busy": kern / busy if busy else None,
         "bound_ms": bound_ms,
         "busy_over_bound": busy / bound_us,
@@ -579,19 +960,35 @@ def profile_step(call, bound_ms, kernel_keys):
 # phase 5: both hand-off arms, and planted faults
 # ---------------------------------------------------------------------------
 
-def phase_handoff(FA, cfg, params, kw, tokens, ref_logits) -> dict:
+def state_readings(moved: dict, truth: dict, pos: int) -> dict:
+    """Max |diff| of the moved layers' state from ``truth``, by kind, over
+    max |truth| of that kind: ``kv`` (live rows of attention caches),
+    ``conv`` and ``ssm`` (recurrent state)."""
+    from repro_torch.core.stateful import _is_kv
+    diff, scale = {}, {}
+    for key, t in truth.items():
+        kind = "kv" if _is_kv(key) else key.rstrip("0123456789")
+        got = moved[key][:, :, :pos] if kind == "kv" else moved[key]
+        diff[kind] = max(diff.get(kind, 0.0), max_diff(got, t))
+        scale[kind] = max(scale.get(kind, 0.0),
+                          t.float().abs().max().item())
+    return {kind: diff[kind] / scale[kind] for kind in diff}
+
+
+def phase_handoff(K, cfg, params, kw, tokens, ref_logits, splits) -> dict:
     """Replays the main path's tokens through a third session: 16 steps at
-    split 18, a switch_b2 to split 9 pinned to the transfer arm, 8 steps,
-    then a switch_b2 back to 18 pinned to the recompute arm (moving layers
-    9..18), read three ways from the same post-switch state: sound, with
-    the moved layers' KV stale (rows of the served steps zeroed, as if the
-    hand-off never ran) and lost (all rows zeroed).  Each is read as the
-    moved layers' KV against the KV the decode steps wrote, and as the
-    logits of the next 8 steps against the unswitched session's."""
-    from repro_torch.core.stateful import make_stateful_manager
-    L = cfg.num_layers
-    mgr, s = make_stateful_manager(cfg, params, split=L // 2, **kw)
+    ``splits[0]``, a switch_b2 to ``splits[1]`` pinned to the transfer arm,
+    8 steps, then a switch_b2 back pinned to the recompute arm, read three
+    ways from the same post-switch state: sound, stale (the moved layers'
+    state as it stood at the transfer switch, 8 steps before: recurrent
+    state from then, KV rows since zeroed) and lost (all zeros).  Each is
+    read as the moved layers' state against the state the decode steps
+    wrote (``state_readings``), and as the logits of the next 8 steps
+    against the unswitched session's."""
+    from repro_torch.core.stateful import _is_kv, make_stateful_manager
+    mgr, s = make_stateful_manager(cfg, params, split=splits[0], **kw)
     scale = max(x.abs().max().item() for x in ref_logits)
+    lo, hi = splits[1], splits[0]
 
     def serve(i0, n) -> float:
         worst = 0.0
@@ -603,107 +1000,118 @@ def phase_handoff(FA, cfg, params, kw, tokens, ref_logits) -> dict:
 
     check(serve(0, 16) == 0.0, "logits differ before any switch")
     mgr.pool.force_mode = "transfer"
-    rep_t = mgr.repartition("switch_b2", L // 4)
+    rep_t = mgr.repartition("switch_b2", lo)
     check(rep_t.handoff_mode == "transfer" and rep_t.handoff_bytes > 0,
           f"pinned transfer switch ran {rep_t.handoff_mode}, "
           f"{rep_t.handoff_bytes} B")
+    stale_pos = s.pos
+    stale = {k: t.clone() for k, t in s.subset(lo, hi).items()}
     d_transfer = serve(16, 8)
     print(f"[handoff] transfer arm: split {rep_t.old_split} -> "
-          f"{rep_t.new_split}, {rep_t.handoff_bytes} B, wall "
-          f"{rep_t.t_handoff:.6f} s; max |logit diff| {d_transfer:.3e}")
-    # the payload carries the moved layers' KV bits unchanged
+          f"{rep_t.new_split}, {rep_t.handoff_bytes} B, hand-off "
+          f"{rep_t.t_handoff:.6f} s (measured wall + the bytes' priced "
+          f"link time); max |logit diff| {d_transfer:.3e}")
+    # the payload carries the moved layers' state bits unchanged
     check(d_transfer == 0.0, f"logits differ after a transfer hand-off: "
                              f"{d_transfer}")
 
-    # the moved layers' KV as the decode steps wrote it: the state the
+    # the moved layers' state as the decode steps wrote it: the state the
     # recompute arm must rebuild (both stages share one card)
-    lo, hi = L // 4, L // 2
-    truth = {k: t[:, :, :s.pos].clone() for k, t in s.subset(lo, hi).items()}
+    truth = {k: (t[:, :, :s.pos] if _is_kv(k) else t).clone()
+             for k, t in s.subset(lo, hi).items()}
     mgr.pool.force_mode = "recompute"
-    before = FA.flash_attention.launches
-    rep_r = mgr.repartition("switch_b2", hi)
+    log = []
+    with counted(K, s, "recompute_layers", log):
+        rep_r = mgr.repartition("switch_b2", hi)
     check(rep_r.handoff_mode == "recompute",
           f"pinned recompute switch ran {rep_r.handoff_mode}")
-    got = FA.flash_attention.launches - before
-    check(got == hi - lo, f"the recompute hand-off launched the prefill "
-                          f"kernel {got} times, want {hi - lo} (one per "
-                          f"moved layer)")
+    want = expected(K, cfg, lo, hi, "full")
+    check(log == [want], f"the recompute hand-off launched {log}, want "
+                         f"[{want}]")
     pos = s.pos
-    kv_limit = KV_RTOL * max(t.float().abs().max().item()
-                             for t in truth.values())
-    logit_limit = LOGIT_RTOL * scale
     snap = s.snapshot()
-    kv, logit = {}, {}
-    for name, first_row in (("sound", None), ("stale", PROMPT),
-                            ("lost", 0)):
+    readings, logit = {}, {}
+    for name in ("sound", "stale", "lost"):
         s.restore(snap)
         moved = s.subset(lo, hi)
-        if first_row is not None:
-            for t in moved.values():
-                t[:, :, first_row:pos].zero_()
-        kv[name] = max(max_diff(moved[k][:, :, :pos], truth[k])
-                       for k in truth)
+        for key, t in moved.items():
+            if name == "lost":
+                t.zero_()
+            elif name == "stale":
+                if _is_kv(key):
+                    t[:, :, stale_pos:pos].zero_()
+                else:
+                    t.copy_(stale[key])
+        readings[name] = state_readings(moved, truth, pos)
         logit[name] = serve(24, 8)
-    mgr.close()
+    shut(mgr)
+    # the state whose faults must show: the SSM state where the family has
+    # one, the KV of the attention layers otherwise
+    primary = "ssm" if "ssm" in readings["sound"] else "kv"
+    logit_limit = LOGIT_RTOL * scale
     print(f"[handoff] recompute arm: split {rep_r.old_split} -> "
-          f"{rep_r.new_split}; max |diff| of the moved layers' KV from the "
-          f"decode-written KV: sound {kv['sound']:.3e}, stale "
-          f"{kv['stale']:.3e}, lost {kv['lost']:.3e} (limit "
-          f"{kv_limit:.3e}); max |logit diff| over the next 8 steps: sound "
-          f"{logit['sound']:.3e}, stale {logit['stale']:.3e}, lost "
-          f"{logit['lost']:.3e} (limit {logit_limit:.3e})")
-    check(kv["sound"] <= kv_limit, f"recomputed KV differs by {kv['sound']}"
-                                   f" (> {kv_limit})")
+          f"{rep_r.new_split}; launched {log[0]}; moved layers' state, max "
+          f"|diff| over max |decode-written| by kind: {readings} (limit "
+          f"{STATE_RTOL}); max |logit diff| over the next 8 steps: {logit} "
+          f"(limit {logit_limit:.3e})")
+    for kind, r in readings["sound"].items():
+        check(r <= STATE_RTOL, f"recomputed {kind} state differs by {r} of "
+                               f"its max (> {STATE_RTOL})")
     check(logit["sound"] <= logit_limit, f"logits after a recompute "
                                          f"hand-off differ by "
                                          f"{logit['sound']}")
     for fault in ("stale", "lost"):
-        check(kv[fault] > kv_limit, f"the KV limit {kv_limit} does not "
-                                    f"catch {fault} KV ({kv[fault]})")
+        r = readings[fault][primary]
+        check(r > STATE_RTOL, f"the {primary} limit {STATE_RTOL} does not "
+                              f"catch {fault} state ({r})")
     return {"transfer": {"bytes": rep_t.handoff_bytes,
                          "t_handoff_s": rep_t.t_handoff,
                          "max_abs_logit_diff": d_transfer},
-            "recompute": {"prefill_kernel_launches": got,
-                          "kv_max_abs_diff": kv, "kv_limit": kv_limit,
+            "recompute": {"launches": log[0],
+                          "state_rel_diff": readings,
+                          "state_limit": STATE_RTOL,
                           "max_abs_logit_diff": logit,
                           "logit_limit": logit_limit}}
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the stateless quickstart path at full width
+# phase 6: the stateless path at full width
 # ---------------------------------------------------------------------------
 
-def phase_stateless(FA, cfg, params, ckpt, seed) -> dict:
-    """One 1024-token prompt through the stateless edge-cloud pipeline at
-    unit split 18 (embedding + 18 layers on the edge), then switch_b2 to 9,
-    switch_a to 18 and pause_resume to 27 (reloading phase 4's
-    checkpoint), with one request after each switch."""
+def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
+    """One ``PROMPT``-token prompt through the stateless edge-cloud
+    pipeline at unit split ``splits[0]`` (embedding + that many layers on
+    the edge), then switch_b2, switch_a and pause_resume (reloading phase
+    4's checkpoint) through ``splits[1:]``, with one request after each
+    switch."""
     from repro_torch.core.network import NetworkModel
     from repro_torch.core.stages import StageRunner
     from repro_torch.core.switching import PipelineManager
+    from repro_torch.kernels import flash_attention as FA
 
     L = cfg.num_layers
+    per_request = expected(K, cfg, 0, L, "full")
     gen = torch.Generator().manual_seed(seed + 2)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT),
                                       generator=gen).cuda()}
     request_ms = []         # edge + cloud wall of a request, unscaled
 
     def serve():
-        before = FA.flash_attention.launches
+        before = K.read()
         logits, timing = mgr.serve(prompt)
         torch.cuda.synchronize()
-        got = FA.flash_attention.launches - before
-        check(got == L, f"a request launched the prefill kernel {got} "
-                        f"times, want {L} (one per layer)")
+        got = K.since(before)
+        check(got == per_request, f"a request launched {got}, want "
+                                  f"{per_request}")
         request_ms.append((timing.t_edge / mgr.active.edge_scale
                            + timing.t_cloud) * 1e3)
         return logits
 
-    # --- the main path, with the launch count read around it ----------
-    FA.flash_attention.launches = 0
+    # --- the main path, with the launch counts read around it ---------
+    K.reset()
     t0 = time.perf_counter()
     runner = StageRunner(cfg, params, attn_impl="kernel", device="cuda")
-    mgr = PipelineManager(runner, split=L // 2, net=NetworkModel(20.0),
+    mgr = PipelineManager(runner, split=splits[0], net=NetworkModel(20.0),
                           sample_inputs=prompt, checkpoint_path=ckpt)
     first = serve()
     check(tuple(first.shape) == (1, PROMPT, cfg.vocab_size)
@@ -712,16 +1120,16 @@ def phase_stateless(FA, cfg, params, ckpt, seed) -> dict:
           f"{bool(torch.isfinite(first).all())}")
     mgr.set_network(NetworkModel(5.0))
     diffs, reps = {}, []
-    for strategy, split in (("switch_b2", L // 4), ("switch_a", L // 2),
-                            ("pause_resume", (3 * L) // 4)):
+    for strategy, split in zip(("switch_b2", "switch_a", "pause_resume"),
+                               splits[1:]):
         if strategy == "switch_a":
             mgr.build_standby(split)
         reps.append(mgr.repartition(strategy, split))
         # switch_a rebuilds the old split's standby in the background, and
-        # its warm-up launches the kernel too: let it land first
+        # its warm-up launches the kernels too: let it land first
         mgr.drain()
         diffs[strategy] = max_diff(serve(), first)
-    launches = FA.flash_attention.launches
+    launches = K.read()
     wall = time.perf_counter() - t0
     rep_b2, rep_a, rep_pr = reps
     for rep in reps:
@@ -734,22 +1142,27 @@ def phase_stateless(FA, cfg, params, ckpt, seed) -> dict:
     # the same kernels run in the same order whatever the split
     check(all(d == 0.0 for d in diffs.values()),
           f"logits changed across switches: {diffs}")
-    check(launches >= 4 * L, f"prefill kernel launched {launches} times "
-                             f"over 4 requests of {L} layers")
-    q = torch.empty((1, PROMPT, cfg.num_heads, cfg.head_dim), device="meta")
-    k = torch.empty((1, PROMPT, cfg.num_kv_heads, cfg.head_dim),
-                    device="meta")
-    bound = request_bound_ms(params, PROMPT,
-                             L * FA.bound_flops(q, k, causal=True))
+    for name, n in per_request.items():
+        check(launches[name] >= 4 * n, f"{name} launched {launches[name]} "
+                                       f"times over 4 requests")
+    attn_flops = 0
+    if cfg.num_heads:
+        q = torch.empty((1, PROMPT, cfg.num_heads, cfg.head_dim),
+                        device="meta")
+        k = torch.empty((1, PROMPT, cfg.num_kv_heads, cfg.head_dim),
+                        device="meta")
+        attn_flops = per_request["flash_attention"] \
+            * FA.bound_flops(q, k, causal=True)
+    bound = request_bound_ms(cfg, params, PROMPT, attn_flops)
     logits, prof = profile_step(lambda: mgr.serve(prompt)[0], bound,
-                                ("flash_attention_kernel",))
+                                device_kernels(cfg))
     check(torch.equal(logits, first), "profiled request's logits differ")
-    mgr.close()
+    shut(mgr)
     med = sorted(request_ms)[len(request_ms) // 2]
-    print(f"[stateless] {launches} prefill-kernel launches ({L} a "
-          f"request); request wall (edge + cloud, unscaled) median "
-          f"{med:.3f} ms of {request_ms}; profiled request: {prof}")
-    return {"launches": launches, "launches_per_request": L,
+    print(f"[stateless] launches {launches} ({per_request} a request); "
+          f"request wall (edge + cloud, unscaled) median {med:.3f} ms of "
+          f"{request_ms}; profiled request: {prof}")
+    return {"launches": launches, "launches_per_request": per_request,
             "wall_s": wall, "request_ms": request_ms,
             "request_ms_median": med, "profiled_request": prof,
             "downtime_s": {r.strategy: r.downtime for r in reps},
@@ -757,10 +1170,78 @@ def phase_stateless(FA, cfg, params, ckpt, seed) -> dict:
             "logit_diff_from_first": diffs}
 
 
+# ---------------------------------------------------------------------------
+# one model through phases 4-6
+# ---------------------------------------------------------------------------
+
+# (arch, layer splits 1/2 -> 1/4 -> 1/2 -> 3/4 of the depth); zamba2's
+# 20 -> 40 and 40 -> 60 moves carry shared-attention applications across
+MODELS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b")
+
+
+def run_model(K, arch, seed) -> dict:
+    """Full-width ``arch`` in bf16 (random weights from a generator seeded
+    with ``seed``) through the stateful decode path, both hand-off arms
+    and the stateless path; frees the weights and the checkpoint after."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.core.stages import param_bytes
+    from repro_torch.models.transformer import init_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    splits = [L // 2, L // 4, L // 2, (3 * L) // 4]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    need = param_bytes(params) + 2 ** 30
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    # pause_resume writes the whole model as a checkpoint there
+    check(free >= need, f"{tempfile.gettempdir()} has {free} B free; "
+                        f"pause_resume's checkpoint of {arch} needs {need}")
+    kw = dict(net=NetworkModel(20.0), prompt_len=PROMPT, max_seq=MAX_SEQ,
+              seed=seed, decode_impl="auto", attn_impl="kernel",
+              device="cuda")
+    ckpt = None
+    try:
+        sl, tokens, ref_logits, ckpt = phase_slice(K, cfg, params, kw,
+                                                   splits)
+        sl["checkpoint_bytes"] = os.path.getsize(ckpt)
+        free_memory()
+        sl["handoff_checks"] = phase_handoff(K, cfg, params, kw, tokens,
+                                             ref_logits, splits)
+        del ref_logits
+        free_memory()
+        st = phase_stateless(K, cfg, params, ckpt, seed, splits)
+    finally:
+        if ckpt is not None:
+            os.remove(ckpt)
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    free_memory()
+    wall = time.perf_counter() - t0
+    print(f"[{arch}] phases 4-6 took {wall:.1f} s; checkpoint "
+          f"{sl['checkpoint_bytes']} B; peak device memory {peak} B")
+    return {"arch": arch, "num_layers": L, "splits": splits,
+            "wall_s": wall, "peak_device_bytes": peak, "stateful": sl,
+            "stateless": st}
+
+
+def free_memory() -> None:
+    """Return what the last phase's objects held to the card: collect
+    their reference cycles, then empty PyTorch's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -770,6 +1251,8 @@ def main() -> None:
         from repro_torch.kernels import build
         from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import flash_decode as FD
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ssd_scan as SD
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
     check("jax" not in sys.modules, "the port imported jax")
@@ -784,50 +1267,35 @@ def main() -> None:
     t_build = build.build(force=True)
     print(f"[build] {build.library_path().name} built in {t_build:.2f} s")
 
-    # phase 3: kernel
+    # phase 3: kernels
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    row = phase_kernel(FD, gen)
-    fa_row = phase_prefill_kernel(FA, gen)
+    rows = {"flash_decode_attention": phase_kernel(FD, gen),
+            "flash_attention": phase_prefill_kernel(FA, gen),
+            "mamba1_scan": phase_mamba_kernel(MS, gen),
+            "ssd_scan": phase_ssd_kernel(SD, gen)}
+    K = Counts({"flash_decode_attention": FD.flash_decode_attention,
+                "flash_attention": FA.flash_attention,
+                "mamba1_scan": MS.mamba1_scan, "ssd_scan": SD.ssd_scan})
 
-    # phase 4: slice
-    from repro_torch.configs import get_config
-    from repro_torch.core.network import NetworkModel
-    from repro_torch.models.transformer import init_model
-    cfg = get_config("qwen2.5-3b")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    params = init_model(cfg, gen, dtype=torch.bfloat16, device="cuda")
-    kw = dict(net=NetworkModel(20.0), prompt_len=PROMPT, max_seq=MAX_SEQ,
-              seed=args.seed, decode_impl="auto", attn_impl="kernel",
-              device="cuda")
-    ckpt = None
-    try:
-        sl, tokens, ref_logits, ckpt = phase_slice(FD, FA, cfg, params, kw)
-        row["launches"] = sl["launches"]
-        row["launches_per_step"] = sl["launches_per_step"]
-
-        # phase 5: hand-off arms
-        sl["handoff_checks"] = phase_handoff(FA, cfg, params, kw, tokens,
-                                             ref_logits)
-        del ref_logits
-        torch.cuda.empty_cache()
-
-        # phase 6: the stateless quickstart path
-        st = phase_stateless(FA, cfg, params, ckpt, args.seed)
-    finally:
-        if ckpt is not None:
-            os.remove(ckpt)
-    fa_row["launches"] = sl["prefill_kernel_launches"] + st["launches"]
-    fa_row["launches_by_path"] = {
-        "stateful_decode": sl["prefill_kernel_launches"],
-        "stateless_quickstart": st["launches"]}
-    fa_row["launches_per_request"] = st["launches_per_request"]
-    fa_row["launches_per_prefill"] = sl["prefill_kernel_launches_in_prefill"]
-    fa_row["launches_per_switch"] = sl["prefill_kernel_launches_per_switch"]
+    # phases 4-6: each model's stateful and stateless paths
+    models = [run_model(K, arch, args.seed) for arch in MODELS]
+    for name, row in rows.items():
+        by_path = {}
+        for m in models:
+            for path in ("stateful", "stateless"):
+                n = m[path]["launches"][name]
+                if n:
+                    by_path[f"{m['arch']} {path}"] = n
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+        check(row["launches"] > 0, f"{name} never launched on a main path")
     check("jax" not in sys.modules, "the port imported jax")
 
     # phase 7: report
-    print(json.dumps({"kernels": [row, fa_row], "build_s": t_build,
-                      "slice": sl, "stateless": st}))
+    wall = time.perf_counter() - t_start
+    print(f"[done] the whole script took {wall:.1f} s")
+    print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
+                      "wall_s": wall, "models": models}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ from repro_torch.configs.base import ArchConfig, INPUT_SHAPES, InputShape
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

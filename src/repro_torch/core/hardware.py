@@ -28,6 +28,8 @@ class DeviceSpec:
 # data-sheet constants of the H100 SXM (not measured)
 H100 = DeviceSpec("h100_sxm", flops=989e12, hbm_bw=3.35e12,
                   mem_bytes=80 * 2 ** 30)
+# its float32 rate outside the tensor cores (the scans' elementwise work)
+H100_F32_FLOPS = 67e12
 
 # paper testbed analogue: edge is ~4x weaker than cloud (4 vs 8 cores,
 # and the paper's edge VM has half the RAM); exact ratio only shifts the

@@ -1,6 +1,7 @@
 """Stage-wise model execution: the "sequence of layers" abstraction.
 
-The counterpart of ``repro/core/stages.py`` for the dense family.  A model
+The counterpart of ``repro/core/stages.py`` for the dense, ssm and hybrid
+families.  A model
 is a list of UNITS: unit 0 = embedding, units 1..L = decoder layers, unit
 L+1 = LM head.  A split after unit ``k`` puts units [0, k] on the edge stage
 and (k, N) on the cloud stage; the boundary tensor is the hidden state.
@@ -30,6 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.concurrency import (RANK_STAGE_CACHE, guarded_by,
                                           make_lock)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 
@@ -113,14 +115,16 @@ def to_device(tree, device: torch.device):
 
 @guarded_by("_cache_lock", "_stage_cache", rank=RANK_STAGE_CACHE)
 class StageRunner:
-    """Executes unit ranges [lo, hi) of a dense model for full-sequence
-    inference.
+    """Executes unit ranges [lo, hi) of a dense, ssm or hybrid model for
+    full-sequence inference.
 
     ``params`` are placed on ``device``, which defaults to the card and
     raises without one unless the caller asks for ``"cpu"``.
-    ``attn_impl`` is the attention of every decoder layer
-    (``layers.attention``): ``"kernel"`` (or the reference's ``"pallas"``)
-    runs the hand-written flash-attention kernel."""
+    ``attn_impl`` is the attention of every attention layer and of the
+    hybrid family's shared block (``layers.attention``): ``"kernel"`` (or
+    the reference's ``"pallas"``) runs the hand-written flash-attention
+    kernel.  Every mamba layer's scan runs the scan kernels
+    (``models.ssm``); the reference's stateless path runs its jnp scan."""
 
     def __init__(self, cfg: ArchConfig, params, attn_impl: str = "chunked",
                  *, device="cuda"):
@@ -153,11 +157,26 @@ class StageRunner:
         if i == self.num_units - 1:
             x = T._apply_norm(cfg, params["final_norm"], state["h"])
             return {"logits": (x @ T.lm_head_weights(cfg, params)).float()}
-        x = state["h"]                               # decoder layer i - 1
-        rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
-        x, _, _ = T.attn_block_full(cfg, layer_params(params, i - 1), x,
-                                    rope_cs, impl=self.attn_impl,
-                                    window=cfg.sliding_window)
+        li = i - 1                                   # decoder layer i - 1
+        x = state["h"]
+        lp = layer_params(params, li)
+        if cfg.family == "dense":
+            rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
+            x, _, _ = T.attn_block_full(cfg, lp, x, rope_cs,
+                                        impl=self.attn_impl,
+                                        window=cfg.sliding_window)
+        else:
+            y, _ = SSM.ssm_block(cfg, lp["mamba"],
+                                 T._apply_norm(cfg, lp["ln"], x))
+            x = x + y
+            if cfg.family == "hybrid" and cfg.hybrid_period \
+                    and (li + 1) % cfg.hybrid_period == 0:
+                # the shared attention block folds into every
+                # hybrid_period-th layer's unit
+                rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
+                x, _, _ = T.attn_block_full(cfg, params["shared"], x,
+                                            rope_cs, impl=self.attn_impl,
+                                            window=cfg.sliding_window)
         out = dict(state)
         out["h"] = x
         return out

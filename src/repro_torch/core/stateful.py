@@ -1,14 +1,16 @@
-"""Stateful dynamic switching: live KV state hand-off at repartition.
+"""Stateful dynamic switching: live KV/SSM state hand-off at repartition.
 
-The PyTorch counterpart of ``repro/core/stateful.py`` for the attention
-families of this slice (dense); ``ssm``/``hybrid``/``moe``/``vlm`` raise
-``NotImplementedError`` naming the slice that brings them.  A decode
-pipeline is stateful: every attention layer carries a per-stream KV
-cache, and when the split moves from ``a`` to ``b`` the state of layers
-``[min(a,b), max(a,b))`` changes sides.  ``core/state_handoff.plan_handoff``
-prices the two ways of moving it; this module executes the plan:
+The PyTorch counterpart of ``repro/core/stateful.py`` for the dense, ssm
+and hybrid families; ``moe``/``vlm`` raise ``NotImplementedError`` naming
+the slice that brings them.  A decode pipeline is stateful: every layer
+carries per-stream decode state (a KV cache for attention layers, conv +
+SSM state for mamba layers, a KV cache for each application of the hybrid
+family's shared attention block), and when the split moves from ``a`` to
+``b`` the state of layers ``[min(a,b), max(a,b))`` changes sides.
+``core/state_handoff.plan_handoff`` prices the two ways of moving it; this
+module executes the plan:
 
-* ``transfer``  — the moved layers' KV is really serialized (``bytes``),
+* ``transfer``  — the moved layers' state is really serialized (``bytes``),
   the link time for those bytes is priced with the current
   ``NetworkModel``, and the payload is deserialized back on the target;
 * ``recompute`` — the moved layers are re-prefilled on the target from
@@ -29,7 +31,8 @@ Where the port differs from the reference, and why:
   ``owns_weights`` pipelines also copy the weights on the device.  Switch
   downtimes are made of these walls.
 * **In-place state.**  A decode step writes its token's K/V into the
-  layer's cache at the decode position in place, and the session writes
+  layer's cache at the decode position in place (a mamba layer's conv and
+  SSM state are small and come back as new tensors), and the session writes
   each step's token and boundary activations into device buffers
   preallocated at ``max_seq``: the reference concatenates its history
   on the host every step, which at full width would copy hundreds of MB
@@ -40,6 +43,14 @@ Where the port differs from the reference, and why:
   bookkeeping (context full, export slicing).
 * **Timing.**  Stage walls synchronise the card where JAX blocks until
   ready; otherwise they would time the launches only.
+* **Scans.**  Every mamba layer's scan runs the hand-written kernels
+  (``models.ssm``, ``impl="kernel"``) in the prefill, the decode steps and
+  the masked recompute; the reference's prefill and recompute run its jnp
+  scan.  ``decode_impl="reference"`` puts the decode steps' scans on the
+  plain versions, as the reference's puts them on jnp.
+* **No rolled path.**  The reference's ``rolled`` ranges (``_segments``,
+  ``lax.scan`` over a span) shrink a compile that eager PyTorch does not
+  have; every range here is one Python loop over its units.
 * **Payloads** keep the reference's ``(dtype str, shape, bytes)`` entries
   and ``(epoch, pos, crc32)`` envelope, so the two packages' hand-offs
   interchange; bf16 travels as its raw 16-bit pattern tagged
@@ -72,18 +83,18 @@ from repro_torch.core.timing import Stopwatch
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.models import layers as Lyr
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 _ATTN_FAMILIES = ("dense",)
+_SUPPORTED = _ATTN_FAMILIES + ("ssm", "hybrid")
 _LATER = {"moe": "the MoE slice (layers.moe_layer)",
-          "vlm": "the remaining-families slice",
-          "ssm": "the SSM/hybrid slice (mamba1_scan)",
-          "hybrid": "the SSM/hybrid slice (ssd_scan)"}
+          "vlm": "the remaining-families slice"}
 _DECODE_IMPLS = ("auto", "kernel", "reference")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _ATTN_FAMILIES:
+    if cfg.family in _SUPPORTED:
         return
     if cfg.family in _LATER:
         raise NotImplementedError(f"stateful serving of {cfg.family!r} "
@@ -141,19 +152,46 @@ def _from_payload(dtype: str, shape, buf: bytes) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def unit_list(cfg: ArchConfig) -> List[Tuple[str, int]]:
-    """Execution-ordered state units: ``("layer", i)`` per decoder layer."""
+    """Execution-ordered state units: ``("layer", i)`` per decoder layer,
+    plus ``("app", g)`` after every ``hybrid_period``-th hybrid layer."""
     _check_family(cfg)
-    return [("layer", i) for i in range(cfg.num_layers)]
+    units: List[Tuple[str, int]] = []
+    for i in range(cfg.num_layers):
+        units.append(("layer", i))
+        if cfg.family == "hybrid" and cfg.hybrid_period \
+                and (i + 1) % cfg.hybrid_period == 0:
+            units.append(("app", (i + 1) // cfg.hybrid_period - 1))
+    return units
 
 
 def unit_index_of_split(cfg: ArchConfig, split: int) -> int:
-    """Units on the edge for a split of ``split`` LAYERS."""
-    return min(max(split, 0), cfg.num_layers)
+    """Units on the edge for a split of ``split`` LAYERS: layers
+    ``[0, split)`` plus any shared-attn application firing inside them."""
+    split = min(max(split, 0), cfg.num_layers)
+    idx = split
+    if cfg.family == "hybrid" and cfg.hybrid_period:
+        idx += split // cfg.hybrid_period
+    return idx
 
 
 def _unit_state_keys(cfg: ArchConfig, unit: Tuple[str, int]) -> Tuple[str, ...]:
-    _, idx = unit
-    return (f"k{idx}", f"v{idx}")
+    kind, idx = unit
+    if kind == "app":
+        return (f"ak{idx}", f"av{idx}")
+    if cfg.family in _ATTN_FAMILIES:
+        return (f"k{idx}", f"v{idx}")
+    return (f"conv{idx}", f"ssm{idx}")
+
+
+def _is_kv(key: str) -> bool:
+    """A KV entry (``k``/``v``/``ak``/``av``): stored at ``max_seq`` along
+    dim 2 and handed off sliced to the live context; ``conv``/``ssm``
+    entries are recurrent state, handed off whole."""
+    return key[0] in ("k", "v", "a")
+
+
+def _is_attn_unit(cfg: ArchConfig, unit: Tuple[str, int]) -> bool:
+    return unit[0] == "app" or cfg.family in _ATTN_FAMILIES
 
 
 def _fit_kv(a, cap: int):
@@ -192,11 +230,14 @@ class StatefulStageRunner:
     ``attn_impl`` is the full-sequence attention of the prefill and the
     recompute arm (``layers.attention``: ``"chunked"``, or ``"kernel"`` for
     the hand-written flash-attention kernel).  ``decode_impl`` selects
-    the decode attention: ``"kernel"`` routes it through the hand-written
-    flash-decode kernel (whose wrapper runs the plain version on a CPU
-    tensor), ``"reference"`` through ``layers.decode_attention``;
-    ``"auto"`` resolves ONCE at construction to kernel on CUDA and
-    reference elsewhere.  ``rolled`` is accepted for
+    the decode hot path: ``"kernel"`` routes decode attention through the
+    hand-written flash-decode kernel and the mamba layers' one-step scans
+    through the scan kernels (whose wrappers run the plain versions on a
+    CPU tensor), ``"reference"`` through ``layers.decode_attention`` and
+    the scans' plain versions; ``"auto"`` resolves ONCE at construction
+    to kernel on CUDA and reference elsewhere.  The prefill's and the
+    recompute arm's scans always take the kernel route (``models.ssm``).
+    ``rolled`` is accepted for
     the reference's signature and changes nothing: the reference's
     ``lax.scan`` over stacked weights shrinks a compile that eager
     PyTorch does not have, so both settings run one Python loop over the
@@ -224,6 +265,14 @@ class StatefulStageRunner:
         self._stage_cache: Dict[Tuple, Any] = {}
         self._full_cache: Dict[Tuple, Any] = {}
         self._lock = make_lock("stateful-runner", RANK_STATEFUL_RUNNER)
+
+    @property
+    def _ssm_impl(self) -> str:
+        """The decode steps' scan route (``models.ssm`` impl)."""
+        return "kernel" if self.resolved_decode_impl == "kernel" else "plain"
+
+    def _has_attention(self, units) -> bool:
+        return any(_is_attn_unit(self.cfg, u) for u in units)
 
     def _attend(self, q, kc, vc, pos):
         """One-token attention vs the heads-major cache, routed per
@@ -268,8 +317,18 @@ class StatefulStageRunner:
     # -- one decoder unit, one token ------------------------------------
     def _decode_unit(self, params, unit, x, cache, new, pos, rope):
         cfg = self.cfg
+        kind, idx = unit
+        if not _is_attn_unit(cfg, unit):
+            ck, sk = _unit_state_keys(cfg, unit)
+            lp = layer_params(params, idx)
+            h = T._apply_norm(cfg, lp["ln"], x)
+            y, nc = SSM.ssm_block(cfg, lp["mamba"], h,
+                                  {"conv": cache[ck], "ssm": cache[sk]},
+                                  impl=self._ssm_impl)
+            new[ck], new[sk] = nc["conv"], nc["ssm"]
+            return x + y
         kk, vk = _unit_state_keys(cfg, unit)
-        p = layer_params(params, unit[1])
+        p = params["shared"] if kind == "app" else layer_params(params, idx)
         B = x.shape[0]
         h = T._apply_norm(cfg, p["ln1"], x)
         q, k, v = T._project_qkv(cfg, p["attn"], h)
@@ -288,11 +347,12 @@ class StatefulStageRunner:
 
     def _make_decode_fn(self, u0: int, u1: int):
         units = self.units[u0:u1]
+        attends = self._has_attention(units)
 
         def fn(params, x, cache, pos):
             new: Dict[str, Any] = {}
             bounds = []
-            rope = self._decode_rope(pos)
+            rope = self._decode_rope(pos) if attends else None
             for unit in units:
                 bounds.append(x)
                 x = self._decode_unit(params, unit, x, cache, new, pos, rope)
@@ -302,22 +362,38 @@ class StatefulStageRunner:
         return fn
 
     # -- one decoder unit, full sequence --------------------------------
+    def _full_unit(self, params, unit, x, caches, rope_cs):
+        cfg = self.cfg
+        kind, idx = unit
+        if not _is_attn_unit(cfg, unit):
+            ck, sk = _unit_state_keys(cfg, unit)
+            lp = layer_params(params, idx)
+            h = T._apply_norm(cfg, lp["ln"], x)
+            y, nc = SSM.ssm_block(cfg, lp["mamba"], h)
+            caches[ck], caches[sk] = nc["conv"], nc["ssm"]
+            return x + y
+        kk, vk = _unit_state_keys(cfg, unit)
+        p = params["shared"] if kind == "app" else layer_params(params, idx)
+        x, (k, v), _ = T.attn_block_full(cfg, p, x, rope_cs,
+                                         impl=self.attn_impl,
+                                         window=cfg.sliding_window)
+        caches[kk] = _fit_kv(k, self.max_seq)
+        caches[vk] = _fit_kv(v, self.max_seq)
+        return x
+
     def _make_full_fn(self, u0: int, u1: int):
         units = self.units[u0:u1]
         cfg = self.cfg
+        attends = self._has_attention(units)
 
         def fn(params, x):
-            rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
+            rope_cs = T._rope_for(cfg, x.shape[1], device=x.device) \
+                if attends else None
             caches: Dict[str, Any] = {}
             bounds = []
             for unit in units:
                 bounds.append(x)
-                kk, vk = _unit_state_keys(cfg, unit)
-                x, (k, v), _ = T.attn_block_full(
-                    cfg, layer_params(params, unit[1]), x, rope_cs,
-                    impl=self.attn_impl, window=cfg.sliding_window)
-                caches[kk] = _fit_kv(k, self.max_seq)
-                caches[vk] = _fit_kv(v, self.max_seq)
+                x = self._full_unit(params, unit, x, caches, rope_cs)
             b = torch.stack(bounds) if bounds \
                 else x.new_zeros((0,) + tuple(x.shape))
             return x, caches, b
@@ -327,30 +403,101 @@ class StatefulStageRunner:
     # The context is zero-padded to ``max_seq`` (one shape per unit range,
     # whatever the context length) and correctness beyond the live length
     # is enforced the way bucketed prefills do it: causal attention already
-    # ignores the pad for valid rows, and pad rows are masked out of the
-    # cache.
+    # ignores the pad for valid rows, pad rows are masked out of the
+    # cache, and the recurrent state freezes at the live length because a
+    # masked dt makes every padded step an identity update
+    # (decay = exp(0 * A) = 1, update = 0).
+
+    def _masked_mamba(self, lp, x, mask, length):
+        """One mamba layer over the padded context: (x + out, state) with
+        the SSM state of the live prefix and the conv state of the K-1 raw
+        inputs trailing the live length (zeros where the context is
+        shorter).  ``mask``: (B, CL) bool; ``length``: 0-d or (B,)."""
+        cfg = self.cfg
+        s = cfg.ssm
+        di = cfg.d_inner
+        B, S_len = x.shape[:2]
+        h = T._apply_norm(cfg, lp["ln"], x)
+        p = lp["mamba"]
+        live = mask[:, :, None]
+        if s.kind == "mamba1":
+            xin, z = (h @ p["in_proj"]).chunk(2, dim=-1)
+            xc, _ = SSM.causal_conv1d(xin, p["conv_w"], p["conv_b"])
+            xc = torch.nn.functional.silu(xc)
+            dt, Bc, Cc = torch.split(xc @ p["x_proj"],
+                                     [s.dt_rank, s.d_state, s.d_state],
+                                     dim=-1)
+            dt = torch.nn.functional.softplus(
+                dt.float() @ p["dt_proj"].float() + p["dt_bias"]) * live
+            A = -torch.exp(p["A_log"])
+            y, hs = SSM.mamba1_scan(dt.to(xc.dtype), Bc, Cc, xc, A)
+            y = y.float() + xc.float() * p["D"]
+            y = (y * torch.nn.functional.silu(z.float())).to(x.dtype)
+            conv_src = xin
+        else:
+            H = di // s.head_dim
+            N = s.d_state
+            z, xbc, dt = torch.split(h @ p["in_proj"], [di, di + 2 * N, H],
+                                     dim=-1)
+            xbc_c, _ = SSM.causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+            xbc_c = torch.nn.functional.silu(xbc_c)
+            xin, Bc, Cc = torch.split(xbc_c, [di, N, N], dim=-1)
+            xh = xin.reshape(B, S_len, H, s.head_dim)
+            dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"]) \
+                * live
+            A = -torch.exp(p["A_log"])
+            y, hs = SSM.mamba2_scan(dt, Bc, Cc, xh, A)
+            y = y + xh.float() * p["D"][:, None]
+            y = y.reshape(B, S_len, di).to(x.dtype)
+            y = y * torch.nn.functional.silu(z)
+            var = y.float().square().mean(-1, keepdim=True)
+            y = (y * torch.rsqrt(var + 1e-5).to(y.dtype)) * p["norm"]
+            conv_src = xbc
+        out = y @ p["out_proj"]
+        # conv state = the K-1 raw inputs trailing the LIVE length, not the
+        # pad: rows [length, length + K - 1) of [zeros(K-1), conv_src]
+        K = p["conv_w"].shape[0]
+        cat = torch.cat([conv_src.new_zeros((B, K - 1, conv_src.shape[-1])),
+                         conv_src], dim=1)
+        length = length.reshape(-1).expand(B).long()
+        rows = length[:, None] + torch.arange(K - 1, device=x.device)
+        conv_state = cat[torch.arange(B, device=x.device)[:, None], rows]
+        return x + out, {"conv": conv_state, "ssm": hs}
 
     def _make_recompute_fn(self, u0: int, u1: int):
         units = self.units[u0:u1]
         cfg = self.cfg
         CL = self.max_seq
+        attends = self._has_attention(units)
 
         def fn(params, x, length):
             # x: (B, CL, D) zero-padded context; length: live prefix — a
             # scalar shared by the batch or per-row (B,)
+            B = x.shape[0]
             length = torch.as_tensor(length, device=x.device)
             ar = torch.arange(CL, device=x.device)
             if length.dim() == 0:
-                m = (ar < length)[None, :, None, None]
+                mask = (ar < length)[None, :].expand(B, CL)
             else:
-                m = (ar[None, :] < length[:, None])[:, :, None, None]
-            rope_cs = T._rope_for(cfg, CL, device=x.device)
+                mask = ar[None, :] < length[:, None]
+            m = mask[:, :, None, None]
+            rope_cs = T._rope_for(cfg, CL, device=x.device) \
+                if attends else None
             caches: Dict[str, Any] = {}
             for unit in units:
+                kind, idx = unit
+                if not _is_attn_unit(cfg, unit):
+                    ck, sk = _unit_state_keys(cfg, unit)
+                    x, st = self._masked_mamba(layer_params(params, idx), x,
+                                               mask, length)
+                    caches[ck], caches[sk] = st["conv"], st["ssm"]
+                    continue
                 kk, vk = _unit_state_keys(cfg, unit)
+                p = params["shared"] if kind == "app" \
+                    else layer_params(params, idx)
                 x, (k, v), _ = T.attn_block_full(
-                    cfg, layer_params(params, unit[1]), x, rope_cs,
-                    impl=self.attn_impl, window=cfg.sliding_window)
+                    cfg, p, x, rope_cs, impl=self.attn_impl,
+                    window=cfg.sliding_window)
                 caches[kk] = (k * m).transpose(1, 2).contiguous()
                 caches[vk] = (v * m).transpose(1, 2).contiguous()
             return caches
@@ -599,8 +746,9 @@ class DecodeSession:
     def export_layers(self, lo: int, hi: int
                       ) -> Tuple[Dict[str, tuple], int]:
         """Really serialize the state of layers [lo, hi): KV sliced to the
-        live context.  Returns (payload, nbytes); the payload carries the
-        ``(epoch, pos, crc32)`` envelope ``import_layers`` validates."""
+        live context, recurrent state whole.  Returns (payload, nbytes);
+        the payload carries the ``(epoch, pos, crc32)`` envelope
+        ``import_layers`` validates."""
         u0 = unit_index_of_split(self.cfg, lo)
         u1 = unit_index_of_split(self.cfg, hi)
         payload: Dict[str, tuple] = {}
@@ -608,7 +756,10 @@ class DecodeSession:
         with self._lock:
             for unit in self.runner.units[u0:u1]:
                 for k in _unit_state_keys(self.cfg, unit):
-                    dtype, arr = _to_payload(self.cache[k][:, :, :self.pos])
+                    t = self.cache[k]
+                    if _is_kv(k):                # KV: valid region only
+                        t = t[:, :, :self.pos]
+                    dtype, arr = _to_payload(t)
                     buf = arr.tobytes()
                     payload[k] = (dtype, arr.shape, buf)
                     nbytes += len(buf)
@@ -637,9 +788,9 @@ class DecodeSession:
     def import_layers(self, payload: Dict[str, tuple]) -> None:
         """Deserialize an ``export_layers`` payload back into the state:
         each sliced KV entry lands in a fresh zero buffer of the cache's
-        shape (one host-to-device copy).  Validates and decodes every
-        entry BEFORE committing anything, so on corruption the session
-        state is untouched."""
+        shape (one host-to-device copy), recurrent state as it is.
+        Validates and decodes every entry BEFORE committing anything, so
+        on corruption the session state is untouched."""
         self.validate_payload(payload)
         decoded: Dict[str, torch.Tensor] = {}
         try:
@@ -652,6 +803,9 @@ class DecodeSession:
                                    f"{k!r}: {e}") from None
         with self._lock:
             for k, t in decoded.items():
+                if not _is_kv(k):
+                    self.cache[k] = t.to(self.device)
+                    continue
                 full = torch.zeros(self.cache[k].shape, dtype=t.dtype,
                                    device=self.device)
                 full[:, :, :t.shape[2]] = t.to(self.device)

@@ -518,6 +518,7 @@ int dispatch(const Params& p, int D, void* stream) {
     case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 112: return launch<T, 112>(p, stream);     // zamba2's shared attn
     case 128: return launch<T, 128>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -37,7 +37,7 @@ import torch
 
 BLOCK_Q = 64                # query rows a block (kBQ in the .cu)
 BLOCK_K = 64                # keys a shared-memory tile (kBK in the .cu)
-HEAD_DIMS = (8, 16, 32, 64, 128)    # the instantiated D's
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)   # the instantiated D's
 NEG_INF = -1e30
 
 

@@ -1,8 +1,10 @@
-"""Dense decoder model: init, embedding, norm, QKV projection, RoPE
-tables, full attention block.
+"""Decoder models: init, embedding, norm, QKV projection, RoPE tables,
+full attention block.
 
-The dense-family subset of ``repro/models/transformer.py`` that the
-stateless and stateful edge-cloud paths run.  Params are a nested dict of
+The subset of ``repro/models/transformer.py`` that the stateless and
+stateful edge-cloud paths run, for the dense, ssm (stacked mamba1 layers)
+and hybrid (stacked mamba2 layers plus one shared attention+MLP layer,
+``params["shared"]``) families.  Params are a nested dict of
 tensors with the reference's keys, shapes and ``(in, out)`` layout; the
 per-layer weights are stacked on a leading L axis
 (``params["layers"]["attn"]["wq"]`` is ``(L, d_model, H * head_dim)``), so
@@ -16,8 +18,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as Lyr
+from repro_torch.models import ssm as SSM
 
-_PORTED_FAMILIES = ("dense",)
+_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
@@ -65,7 +68,7 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
 
 
 def embed_inputs(cfg, params, inputs):
-    """Token embedding (the dense family has no frontend): (B, S, D)."""
+    """Token embedding (the ported families have no frontend): (B, S, D)."""
     return params["embed"][inputs["tokens"]]
 
 
@@ -83,12 +86,35 @@ def _rope_for(cfg, S, offset=0, device=None):
 # init
 # ---------------------------------------------------------------------------
 
+def _decoder_layer(cfg, normal, ones, zeros, lead=()):
+    """One attention decoder layer's weights (``init_decoder_layer``),
+    each with the leading dims ``lead`` (``(L,)`` for a stack)."""
+    d, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    attn = {"wq": normal(*lead, d, H * hd), "wk": normal(*lead, d, KH * hd),
+            "wv": normal(*lead, d, KH * hd), "wo": normal(*lead, H * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(*lead, H * hd), bk=zeros(*lead, KH * hd),
+                    bv=zeros(*lead, KH * hd))
+    if cfg.gated_mlp:
+        mlp = {"w_gate": normal(*lead, d, F), "w_up": normal(*lead, d, F),
+               "w_down": normal(*lead, F, d)}
+    else:
+        mlp = {"w_up": normal(*lead, d, F), "w_down": normal(*lead, F, d)}
+    return {"ln1": {"scale": ones(*lead, d)}, "attn": attn,
+            "ln2": {"scale": ones(*lead, d)}, "mlp": mlp}
+
+
 def init_model(cfg, generator: Optional[torch.Generator] = None,
                dtype: torch.dtype = torch.float32, device="cuda", *,
                seed: int = 0) -> Dict[str, Any]:
-    """Random weights with the reference's keys, shapes, layout and std
-    (``repro.models.transformer.init_model``): normal * 0.02 for every
-    matrix, ones for norm scales, zeros for QKV biases.
+    """Random weights with the reference's keys, shapes, layout, dtypes and
+    std (``repro.models.transformer.init_model``): normal * 0.02 for every
+    attention/MLP matrix, ones for norm scales, zeros for QKV biases, and
+    ``models.ssm``'s initialisation of the mamba blocks (their ``dt_bias``,
+    ``A_log`` and ``D`` in f32 whatever ``dtype``).  The ``ssm`` family
+    stacks mamba1 layers; ``hybrid`` stacks mamba2 layers and adds
+    ``params["shared"]``, one attention decoder layer.
 
     ``generator`` draws every tensor in a fixed order; without one, a
     generator on ``device`` seeded with ``seed`` is made.  The numbers
@@ -99,12 +125,15 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    d, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
-    H, KH, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    d, L = cfg.d_model, cfg.num_layers
 
-    def normal(*shape):
+    def normal(*shape, std=0.02):
         t = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
-        return t.mul_(0.02)
+        return t.mul_(std)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, dtype=torch.float32,
+                          device=dev)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
@@ -116,16 +145,14 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
                               "final_norm": {"scale": ones(d)}}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, cfg.vocab_size)
-    attn = {"wq": normal(L, d, H * hd), "wk": normal(L, d, KH * hd),
-            "wv": normal(L, d, KH * hd), "wo": normal(L, H * hd, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(L, H * hd), bk=zeros(L, KH * hd),
-                    bv=zeros(L, KH * hd))
-    if cfg.gated_mlp:
-        mlp = {"w_gate": normal(L, d, F), "w_up": normal(L, d, F),
-               "w_down": normal(L, F, d)}
+    if cfg.family == "dense":
+        params["layers"] = _decoder_layer(cfg, normal, ones, zeros, (L,))
+        return params
+    if cfg.ssm.kind == "mamba1":
+        mamba = SSM.init_mamba1(cfg, normal, uniform, dtype, dev, (L,))
     else:
-        mlp = {"w_up": normal(L, d, F), "w_down": normal(L, F, d)}
-    params["layers"] = {"ln1": {"scale": ones(L, d)}, "attn": attn,
-                        "ln2": {"scale": ones(L, d)}, "mlp": mlp}
+        mamba = SSM.init_mamba2(cfg, normal, dtype, dev, (L,))
+    params["layers"] = {"ln": {"scale": ones(L, d)}, "mamba": mamba}
+    if cfg.family == "hybrid":
+        params["shared"] = _decoder_layer(cfg, normal, ones, zeros)
     return params

@@ -20,7 +20,9 @@ from repro_torch.checkpoint import load_pytree
 
 def from_numpy(tree, device="cpu") -> Any:
     """Nested dicts/lists of numpy arrays -> the same of tensors on
-    ``device`` (dtype kept; arrays are copied, never aliased)."""
+    ``device`` (dtype kept, JAX's bfloat16 included, so a pytree of mixed
+    dtypes carries across leaf by leaf; arrays are copied, never
+    aliased)."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -28,6 +30,9 @@ def from_numpy(tree, device="cpu") -> Any:
     arr = np.asarray(tree)
     if not isinstance(arr, np.ndarray) or arr.dtype == object:
         raise TypeError(f"expected a numpy array leaf, got {type(tree)!r}")
+    if arr.dtype.name == "bfloat16":        # JAX's bf16 (ml_dtypes): torch
+        bits = np.array(arr, copy=True).view(np.uint16)  # reads its bits
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 

@@ -1,6 +1,8 @@
-"""The port on a CUDA device: the flash-decode and flash-attention kernels
-against their plain versions, a short kernel-routed decode against the
-reference route, and the stateless pipeline on the prefill kernel.
+"""The port on a CUDA device: the flash-decode, flash-attention,
+mamba1_scan and ssd_scan kernels against their plain versions (the
+attention kernels at zamba2-7b's head_dim 112 too), short kernel-routed
+decodes against the reference route for the dense, ssm and hybrid
+families, and the stateless pipeline on the prefill kernel.
 Imports only torch and the port, so it also runs where JAX is absent.
 Every test here needs the card and skips without it:
 
@@ -20,6 +22,8 @@ from repro_torch.core.stages import StageRunner  # noqa: E402
 from repro_torch.core.switching import PipelineManager  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import flash_decode as FD  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
+from repro_torch.kernels import ssd_scan as SD  # noqa: E402
 from repro_torch.models.transformer import init_model  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
@@ -172,3 +176,142 @@ def test_stateless_pipeline_on_prefill_kernel(cuda):
         out, _ = mgr.serve(tokens)
         assert torch.equal(out, ref), strategy
     mgr.close()
+
+
+def test_attention_kernels_at_head_dim_112(cuda):
+    """zamba2-7b's shared attention: 32 heads of 112, MHA."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _fa_compare(cuda, 1, 70, 70, 4, 4, 112, dtype, causal=True)
+    _fa_compare(cuda, 1, 1024, 1024, 32, 32, 112, torch.bfloat16,
+                causal=True)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 1, 32, 112, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    k = torch.randn(1, 32, 2048, 112, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    v = torch.randn(1, 32, 2048, 112, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    for pos in (1, 1024, 2048):
+        out = FD.flash_decode_attention(q, k, v, pos=pos)
+        want = FD.flash_decode_attention_plain(q, k, v, pos=pos)
+        tol = 1e-2 * want.float().abs().max().item()
+        assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+# tests/test_kernels.py's mamba-scan grid and tests/test_ssd_kernel.py's
+# SSD grid, and the full-width decode-step shapes
+MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16),
+           (1, 1, 8192, 16)]
+SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
+            (2, 16, 1, 64, 32), (1, 1, 112, 64, 64)]
+
+
+def _hold(out, want, dtype):
+    # bf16: 1% of max|plain|, one rounding step (2**-7 of a value) at most
+    tol = 1e-2 * want.float().abs().max().item() \
+        if dtype == torch.bfloat16 else 1e-4
+    assert out.shape == want.shape and out.dtype == want.dtype
+    assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B,S,Di,N", MS_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(cuda, B, S, Di, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dt)
+    dt = torch.nn.functional.softplus(rand(B, S, Di, dt=torch.float32)) \
+        .to(dtype)
+    dbc = rand(B, S, 8 + 2 * N)          # B and C as column views
+    args = (dt, dbc[..., 8:8 + N], dbc[..., 8 + N:], rand(B, S, Di),
+            -torch.exp(rand(Di, N, dt=torch.float32) * 0.2))
+    for h0 in (None, rand(B, Di, N, dt=torch.float32)):
+        before = MS.mamba1_scan.launches
+        y, h = MS.mamba1_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        assert MS.mamba1_scan.launches == before + 1
+        yw, hw = MS.mamba1_scan_plain(*args, h0=h0)
+        _hold(y, yw, dtype)
+        _hold(h, hw, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", SSD_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dt)
+    xbc = rand(B, S, H * P + 2 * N)      # x, B and C as column views
+    args = (torch.nn.functional.softplus(rand(B, S, H, dt=torch.float32)),
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:],
+            xbc[..., :H * P].reshape(B, S, H, P),
+            -torch.exp(rand(H, dt=torch.float32) * 0.3))
+    for h0 in (None, rand(B, H, P, N, dt=torch.float32)):
+        before = SD.ssd_scan.launches
+        y, h = SD.ssd_scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        assert SD.ssd_scan.launches == before + 1
+        yw, hw = SD.ssd_scan_plain(*args, h0=h0)
+        _hold(y, yw, dtype)
+        _hold(h, hw, dtype)
+
+
+@pytest.mark.parametrize("scan", ["mamba1", "ssd"])
+def test_scan_kernels_continue_and_freeze_under_masked_dt(cuda, scan):
+    """[0:S] == [0:S/2] then [S/2:S] with carried h (1e-5), and dt = 0 past
+    a live length leaves the state bit for bit as the live scan's."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    # the reference tests' continuation shapes
+    if scan == "mamba1":
+        fn, shapes = MS.mamba1_scan, [(1, 32, 32), (1, 32, 8), (1, 32, 8),
+                                      (1, 32, 32), (32, 8)]
+    else:
+        fn, shapes = SD.ssd_scan, [(1, 32, 2), (1, 32, 4), (1, 32, 4),
+                                   (1, 32, 2, 8), (2,)]
+    dt, Bc, Cc, x, A = (torch.randn(s, generator=g, device=cuda)
+                        for s in shapes)
+    dt = torch.nn.functional.softplus(dt)
+    A = -torch.exp(A * 0.2)
+    S = dt.shape[1]
+    y_full, h_full = fn(dt, Bc, Cc, x, A)
+    y1, h1 = fn(dt[:, :S // 2], Bc[:, :S // 2], Cc[:, :S // 2],
+                x[:, :S // 2], A)
+    y2, h2 = fn(dt[:, S // 2:], Bc[:, S // 2:], Cc[:, S // 2:],
+                x[:, S // 2:], A, h0=h1)
+    assert (torch.cat([y1, y2], 1) - y_full).abs().max().item() <= 1e-5
+    assert (h2 - h_full).abs().max().item() <= 1e-5
+    live = 20
+    masked = dt.clone()
+    masked[:, live:] = 0
+    _, h_pad = fn(masked, Bc, Cc, x, A)
+    _, h_live = fn(masked[:, :live], Bc[:, :live], Cc[:, :live],
+                   x[:, :live], A)
+    assert torch.equal(h_pad, h_live)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_kernel_route_matches_reference_route(cuda, arch):
+    """Reduced ssm / hybrid models in f32: the prefill on the scan
+    kernels, decode steps on the kernels (one scan launch a mamba layer,
+    one flash-decode launch a shared-attention application) against the
+    reference route's plain scans and decode attention."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4)
+    kw = dict(split=2, net=NetworkModel(20.0), prompt_len=8, max_seq=64,
+              device=cuda, attn_impl="kernel")
+    km, ks = make_stateful_manager(cfg, decode_impl="auto", **kw)
+    rm, rs = make_stateful_manager(cfg, decode_impl="reference", **kw)
+    assert km.runner.resolved_decode_impl == "kernel"
+    scan = MS.mamba1_scan if cfg.ssm.kind == "mamba1" else SD.ssd_scan
+    apps = cfg.num_layers // cfg.hybrid_period if cfg.hybrid_period else 0
+    for _ in range(4):
+        tok = ks.next_token()
+        before = (scan.launches, FD.flash_decode_attention.launches)
+        a, _ = km.active.process({"token": tok})
+        assert (scan.launches, FD.flash_decode_attention.launches) == \
+            (before[0] + cfg.num_layers, before[1] + apps)
+        b, _ = rm.active.process({"token": tok})
+        assert (a - b).abs().max().item() <= 5e-4
+    km.close()
+    rm.close()

@@ -211,7 +211,8 @@ def test_entry_points_need_cuda_unless_cpu(pair):
     _, tr, _ = pair
     with pytest.raises(RuntimeError, match="CUDA"):
         StageRunner(tr.cfg, tr.params)
-    cfg = dataclasses.replace(tr.cfg, family="ssm")
+    # a family still to port (ssm and hybrid are: test_torch_ssm_serving)
+    cfg = dataclasses.replace(tr.cfg, family="moe")
     with pytest.raises(NotImplementedError):
         StageRunner(cfg, tr.params, device="cpu")
 

@@ -257,9 +257,12 @@ def test_decode_impl_validation_and_auto_resolution():
 
 def test_unported_parts_raise():
     _, tcfg = _cfgs("dense")
-    for family in ("ssm", "hybrid", "moe"):
+    for family in ("moe", "vlm"):
         with pytest.raises(NotImplementedError):
             unit_list(dataclasses.replace(tcfg, family=family))
+    # the ssm and hybrid families are ported (tests/test_torch_ssm_serving.py)
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+        assert unit_list(tget(arch))[0] == ("layer", 0)
     with pytest.raises(NotImplementedError):
         PipelineKey(split=1, mesh_shape=(1, 2))
     with pytest.raises(NotImplementedError):
