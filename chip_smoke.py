@@ -15,13 +15,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                flash_attention: the reference shape grid and mask cases in
                f32 and bf16, D 112, sequence-major views of heads-major K/V
                (strides, no copies), and the full-width prefill shapes of
-               both models (1024 and 2048 tokens, causal, bf16).
+               both models (1024 and 2048 tokens, causal, bf16) and their
+               recompute-shaped call (q_offset 1024, 300 queries).
                mamba1_scan and ssd_scan: the reference grids in f32 and
                bf16 with and without h0, state continuation, and the
-               full-width decode step (S = 1), prompt (S = 1024) and the
-               recompute arm's scan (S = 2048, dt masked past 1024, whose
-               state must equal the 1024-step scan's).  Times kernel, plain
-               version and, where one exists, one PyTorch library call at
+               full-width decode step (S = 1), prompt (S = 1024; ssd_scan
+               also 64 and 65, with and without h0: each of its paths) and
+               the recompute arm's scan (S = 2048, dt masked past 1024,
+               whose state must equal the 1024-step scan's).  Times kernel,
+               plain version and, where one exists, one PyTorch library call at
                the full-width shapes, beside the least time the card could
                take (the larger of bytes over its data-sheet memory rate
                and operations over its data-sheet rate for their type).
@@ -328,6 +330,10 @@ def phase_prefill_kernel(FA, gen) -> dict:
         for S in FA_FULL_S:
             compare(*inputs(B, S, S, H, KH, D, torch.bfloat16),
                     f"full width H={H} KH={KH} D={D} S={S}", causal=True)
+        # the recompute arm: queries at 1024 ... 1323 against 1324 keys
+        compare(*inputs(B, 300, 1324, H, KH, D, torch.bfloat16),
+                f"recompute-shaped H={H} KH={KH} D={D}", causal=True,
+                q_offset=1024)
     print(f"[kernel] flash_attention matches its plain version: max abs err "
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
@@ -369,6 +375,8 @@ def phase_prefill_kernel(FA, gen) -> dict:
         q, k, _ = sets[0]
         t_ops = FA.bound_flops(q, k, causal=True) / H100.flops * 1e3
         t_bytes = FA.bound_bytes(q, k) / H100.hbm_bw * 1e3
+        chain, mean = FA.schedule_chain(B, S, S, H, causal=True,
+                                        window=None, q_offset=0)
         timed.append({"S": S, "H": H, "KH": KH, "D": D,
                       "ms": min(kern1, kern2),
                       "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
@@ -383,7 +391,8 @@ def phase_prefill_kernel(FA, gen) -> dict:
               f"KH={KH} D={D} S={S}: "
               f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
               f"library {lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}); schedule chain "
+              f"{chain} key tiles, mean {mean:.2f} a consumer")
         del sets
     first = timed[0]                # qwen2.5-3b's served prompt
     B, H, KH, D = (FA_FULL[x] for x in ("B", "H", "KH", "D"))
@@ -461,10 +470,11 @@ def scan_row(name, source, replaces, errs, timed) -> dict:
 
 
 # tests/test_kernels.py's mamba-scan grid (its chunk and block_d have no
-# counterpart here) and tests/test_ssd_kernel.py's SSD grid
+# counterpart here) and tests/test_ssd_kernel.py's SSD grid, with a ragged
+# two-row case at zamba2's head width (the chunk-parallel path)
 MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16)]
 SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
-            (2, 16, 1, 64, 32)]
+            (2, 16, 1, 64, 32), (2, 130, 2, 64, 64)]
 MS_FULL = dict(Di=8192, N=16, R=256)         # falcon-mamba-7b's layer
 SSD_FULL = dict(H=112, P=64, N=64)           # zamba2-7b's layer
 SCAN_S = (1, 1024)                           # a decode step, the prompt
@@ -589,18 +599,28 @@ def phase_ssd_kernel(SD, gen) -> dict:
             compare(args, None, f"{dtype} {(B, S, H, P, N)}")
             compare(args, rand((B, H, P, N)),
                     f"{dtype} {(B, S, H, P, N)} h0")
-    # tests/test_ssd_kernel.py's continuation: [0:32] == [0:16], [16:32]
-    args = inputs(1, 32, 2, 8, 4, torch.float32)
-    y_full, h_full = SD.ssd_scan(*args)
-    y1, h1 = SD.ssd_scan(*(a[:, :16] for a in args[:4]), args[4])
-    y2, h2 = SD.ssd_scan(*(a[:, 16:] for a in args[:4]), args[4], h0=h1)
-    cont = max(max_diff(torch.cat([y1, y2], 1), y_full),
-               max_diff(h2, h_full))
-    check(cont <= CONT_ATOL, f"ssd_scan continuation differs by {cont}")
+    def continuation(args, cut):
+        y_full, h_full = SD.ssd_scan(*args)
+        y1, h1 = SD.ssd_scan(*(a[:, :cut] for a in args[:4]), args[4])
+        y2, h2 = SD.ssd_scan(*(a[:, cut:] for a in args[:4]), args[4],
+                             h0=h1)
+        return max(max_diff(torch.cat([y1, y2], 1), y_full),
+                   max_diff(h2, h_full))
+
     H, P, N = (SSD_FULL[k] for k in ("H", "P", "N"))
-    for S in SCAN_S:
-        compare(inputs(1, S, H, P, N, torch.bfloat16),
-                rand((1, H, P, N)) if S == 1 else None, f"full width S={S}")
+    # tests/test_ssd_kernel.py's continuation, [0:32] == [0:16], [16:32]
+    # (the sequential kernel), and across a chunk boundary at full width
+    # (the chunk-parallel launches)
+    cont = max(continuation(inputs(1, 32, 2, 8, 4, torch.float32), 16),
+               continuation(inputs(1, 256, H, P, N, torch.float32), 128))
+    check(cont <= CONT_ATOL, f"ssd_scan continuation differs by {cont}")
+    # every path at full width: the step, one chunk, and more (65: a
+    # ragged second chunk; the prompt)
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 64, 65, 1024):
+            for h0 in (None, rand((1, H, P, N))):
+                compare(inputs(1, S, H, P, N, dtype), h0,
+                        f"full width {dtype} S={S} h0={h0 is not None}")
     dt, Bc, Cc, x, A = inputs(1, PADDED, H, P, N, torch.bfloat16)
     dt[:, LIVE:] = 0
     _, h_pad = compare((dt, Bc, Cc, x, A), None, f"masked S={PADDED}")
@@ -636,8 +656,43 @@ def phase_ssd_kernel(SD, gen) -> dict:
               f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
         del sets, h0s
-    return scan_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-                    "src/repro/kernels/ssd_scan.py:67", errs, timed)
+    # one chunk (S 64) at full width: the chunk-parallel launches that
+    # every S > 1 takes there, against the general-width sequential kernel
+    one = inputs(1, SD.CHUNK, H, P, N, torch.bfloat16)
+    n = max(2, -(-128 * 2 ** 20 // SD.bound_bytes(one[0], one[1], one[3],
+                                                   False)))
+    sets = [one] + [inputs(1, SD.CHUNK, H, P, N, torch.bfloat16)
+                    for _ in range(n - 1)]
+
+    def call(i):
+        return SD.ssd_scan(*sets[i % n])
+    chunked1 = cuda_ms(call, 20)
+    with forced_path(SD, "sequential"):
+        seq1 = cuda_ms(call, 20)
+        seq2 = cuda_ms(call, 20)
+    chunked2 = cuda_ms(call, 20)
+    del sets
+    one_chunk = {"chunked": [chunked1, chunked2],
+                 "sequential": [seq1, seq2]}
+    print(f"[kernel] ssd_scan full-width bf16 S={SD.CHUNK}: chunk-parallel "
+          f"{min(chunked1, chunked2):.5f} ms, sequential kernel "
+          f"{min(seq1, seq2):.5f} ms")
+    row = scan_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan.py:67", errs, timed)
+    row["one_chunk_ms"] = one_chunk
+    return row
+
+
+@contextlib.contextmanager
+def forced_path(SD, kind: str):
+    """Every ``SD.ssd_scan`` call takes path ``kind`` while open (a timing
+    comparison; the wrapper picks the path from the shape otherwise)."""
+    real = SD.path
+    SD.path = lambda S, P, N: kind
+    try:
+        yield
+    finally:
+        SD.path = real
 
 
 # ---------------------------------------------------------------------------
@@ -719,12 +774,16 @@ def scaled(counts: dict, k: int) -> dict:
 
 
 def device_kernels(cfg) -> tuple:
-    """Names of the CUDA kernels of the family's main path (profiler)."""
-    names = ["flash_attention_kernel", "decode_split_kernel",
+    """Parts of the names of the CUDA kernels of the family's main path
+    (profiler): the prefill attention's (``flash_attention_hopper_kernel``
+    in bf16), flash-decode's two, and the scan's (ssd_scan's three
+    chunk-parallel passes, its decode step and its sequential kernel all
+    carry ``ssd_``)."""
+    names = ["flash_attention_", "decode_split_kernel",
              "decode_combine_kernel"]
     if cfg.ssm is not None:
         names.append("mamba1_scan_kernel" if cfg.ssm.kind == "mamba1"
-                     else "ssd_scan_kernel")
+                     else "ssd_")
     return tuple(names)
 
 
@@ -941,6 +1000,8 @@ def profile_step(call, bound_ms, kernel_keys):
     busy = sum(e.self_device_time_total for e in events)
     by_kernel = {key: sum(e.self_device_time_total for e in events
                           if key in e.key) / 1e3 for key in kernel_keys}
+    calls = {key: sum(e.count for e in events if key in e.key)
+             for key in kernel_keys}
     kern = sum(by_kernel.values()) * 1e3
     bound_us = bound_ms * 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -949,6 +1010,9 @@ def profile_step(call, bound_ms, kernel_keys):
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
         "kernel_device_ms": kern / 1e3, "kernel_device_ms_by_name": by_kernel,
+        "kernel_device_us_per_launch": {
+            key: by_kernel[key] * 1e3 / calls[key]
+            for key in kernel_keys if calls[key]},
         "kernel_share_of_busy": kern / busy if busy else None,
         "bound_ms": bound_ms,
         "busy_over_bound": busy / bound_us,

@@ -8,6 +8,10 @@ build happens at first use, from the sources in the checkout, into
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is loaded as it is.  Nothing is compiled when a module is
 imported: the CPU tests import every module on a host without ``nvcc``.
+The library links the CUDA runtime only: the TMA tensor-map encoder
+(``cuTensorMapEncodeTiled``, a driver function) is found at run time
+through ``cudaGetDriverEntryPoint`` (``csrc/flash_attention.cu``), so no
+``-lcuda`` is needed.
 """
 from __future__ import annotations
 
@@ -128,8 +132,8 @@ def load() -> ctypes.CDLL:
                 fn.restype = I
             for name in ("ssd_scan_f32", "ssd_scan_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I64P,
-                               P]
+                fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               I, I64P, P]
                 fn.restype = I
             _lib = lib
         return _lib

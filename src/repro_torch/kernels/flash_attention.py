@@ -6,14 +6,17 @@ Replaces the Pallas TPU kernel ``flash_attention``
 hand-written CUDA kernel in ``repro_torch/csrc/flash_attention.cu``; on a
 CPU tensor the wrapper runs the plain PyTorch version below.
 
-What bounds it on an H100: a causal prefill of the served model (H 16,
-KH 2, D 128, 1024 or 2048 tokens) does ``4 * D`` flops for every live
-(query, key) pair and moves each element once, hundreds of flops per
-byte, so it is bound by operations (``bound_flops``).  One block owns
-``BLOCK_Q`` query rows of one (batch row, head) and walks the live key
-tiles itself (``grid_plan``, ``key_tiles``: the kernel's loop bounds,
-stated here for the tests); the reference's layout copies are replaced by
-strides.
+What bounds it on an H100: a causal prefill of the served models
+(qwen2.5-3b H 16, KH 2, D 128; zamba2-7b H 32, KH 32, D 112; 1024 or 2048
+tokens) does ``4 * D`` flops for every live (query, key) pair and moves
+each element once, hundreds of flops per byte, so it is bound by
+operations (``bound_flops``).  The bf16 kernel runs work items of one
+(batch row, head, ``BLOCK_Q``-row query tile), two a block, longest causal
+tile first (``work_items``, ``grid_plan``), each walking its live key tiles
+(``key_tiles``) through a TMA-fed ring on the tensor cores; the f32 kernel
+runs one block per item on the CUDA cores.  These functions state the
+kernels' launch exactly, for the tests.  The reference's layout copies are
+replaced by strides.
 
 Contract (the Pallas kernel's, held by both versions):
 
@@ -30,15 +33,17 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-BLOCK_Q = 64                # query rows a block (kBQ in the .cu)
+BLOCK_Q = 64                # query rows a work item (kBQ in the .cu)
 BLOCK_K = 64                # keys a shared-memory tile (kBK in the .cu)
+CONSUMERS = 2               # bf16: work items a block (kConsumers)
 HEAD_DIMS = (8, 16, 32, 64, 112, 128)   # the instantiated D's
 NEG_INF = -1e30
+SMS = 132                   # an H100 SXM's streaming multiprocessors
 
 
 def _scale(D: int) -> float:
@@ -46,11 +51,36 @@ def _scale(D: int) -> float:
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
-def grid_plan(B: int, Sq: int, H: int) -> Tuple[int, int]:
-    """The launch grid ``(B * H, n_q_tiles)``: one block per (batch row,
-    head) and tile of ``BLOCK_Q`` query rows.  Block ``y`` takes q tile
-    ``n_q_tiles - 1 - y``, so the longest causal tiles go first."""
-    return B * H, -(-Sq // BLOCK_Q)
+def n_q_tiles(Sq: int) -> int:
+    return -(-Sq // BLOCK_Q)
+
+
+def work_items(B: int, Sq: int, H: int) -> List[Tuple[int, int, int]]:
+    """``(b, h, q_tile)`` of every bf16 work item in launch order: item
+    ``i`` takes q tile ``n_q_tiles - 1 - i // (B * H)`` of head row ``i %
+    (B * H)``, so the longest causal tiles go first (``Item`` in the
+    .cu)."""
+    n, rows = n_q_tiles(Sq), B * H
+    return [((i % rows) // H, i % H, n - 1 - i // rows)
+            for i in range(rows * n)]
+
+
+def grid_plan(B: int, Sq: int, H: int,
+              dtype: torch.dtype = torch.bfloat16) -> Tuple[int, ...]:
+    """The launch grid.  bf16: ``(ceil(items / CONSUMERS),)``, block ``x``
+    running work items ``CONSUMERS * x + c`` on its consumer warpgroups.
+    f32: ``(B * H, n_q_tiles)``, block ``(bh, y)`` running q tile
+    ``n_q_tiles - 1 - y`` of head row ``bh``."""
+    if dtype == torch.bfloat16:
+        return (-(-B * H * n_q_tiles(Sq) // CONSUMERS),)
+    return B * H, n_q_tiles(Sq)
+
+
+def block_items(x: int, B: int, Sq: int,
+                H: int) -> List[Tuple[int, int, int]]:
+    """The work items bf16 block ``x`` runs, one a consumer."""
+    items = work_items(B, Sq, H)
+    return items[CONSUMERS * x:CONSUMERS * (x + 1)]
 
 
 def key_tiles(q_tile: int, Sq: int, Sk: int, *, causal: bool,
@@ -79,6 +109,26 @@ def live_pairs(Sq: int, Sk: int, *, causal: bool, window: Optional[int],
     lo = np.maximum(qpos - window + 1, 0) if window is not None \
         else np.zeros(Sq, np.int64)
     return int(np.maximum(hi - lo, 0).sum())
+
+
+def schedule_chain(B: int, Sq: int, Sk: int, H: int, *, causal: bool,
+                   window: Optional[int], q_offset: int,
+                   sms: int = SMS) -> Tuple[int, float]:
+    """The bf16 schedule's longest chain against its mean, in key tiles a
+    consumer walks: blocks go, in launch order, to the SM that frees first
+    (one block resident an SM) and last as long as their longer item.
+    Returns (the last SM's finish, the key tiles of all items over the
+    ``sms * CONSUMERS`` consumers)."""
+    walks = []
+    for _, _, qt in work_items(B, Sq, H):
+        lo, hi = key_tiles(qt, Sq, Sk, causal=causal, window=window,
+                           q_offset=q_offset)
+        walks.append(hi - lo)
+    free = [0] * sms
+    for x in range(grid_plan(B, Sq, H)[0]):
+        sm = min(range(sms), key=free.__getitem__)
+        free[sm] += max(walks[CONSUMERS * x:CONSUMERS * (x + 1)])
+    return max(free), sum(walks) / (sms * CONSUMERS)
 
 
 def bound_flops(q, k, *, causal=True, window=None, q_offset=0) -> int:
@@ -147,9 +197,10 @@ def _check(q, k, v, window, q_offset) -> None:
 
 
 def _check_launchable(q, k, v) -> None:
-    """What the kernel itself needs beyond ``_check``: an instantiated head
-    dim, a contiguous last dimension, and 16-byte aligned rows (its tile
-    loads move 16 bytes a thread)."""
+    """What the kernels themselves need beyond ``_check``: an instantiated
+    head dim, a contiguous last dimension, and 16-byte aligned rows and
+    base pointers (f32 tile loads move 16 bytes a thread; a TMA tensor
+    map needs 16-byte aligned strides and base)."""
     D = q.shape[3]
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} is not one the kernel is built for "
@@ -197,11 +248,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 \
         else lib.flash_attention_f32
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _, n_q_tiles = grid_plan(B, Sq, H)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, Sq, Sk, H, KH, D, strides, int(bool(causal)),
-             0 if window is None else int(window), int(q_offset), n_q_tiles,
-             _scale(D), stream)
+             0 if window is None else int(window), int(q_offset),
+             n_q_tiles(Sq), _scale(D), stream)
+    if err >= 999:
+        raise RuntimeError(f"flash_attention: no TMA tensor map for q/k/v "
+                           f"(code {err}: 999 = cuTensorMapEncodeTiled not "
+                           f"found, else 1000 + its CUresult)")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")

@@ -8,12 +8,16 @@ CUDA kernel in ``repro_torch/csrc/ssd_scan.cu``; on a CPU tensor the
 wrapper runs the plain PyTorch version below.
 
 What bounds it on an H100: at the served shapes (H 112, P 64, N 64, bf16)
-a 1024-token prefill moves ~34 MB and does ~3.8 GFLOP in the chunked
+a 1024-token prefill moves ~32 MB and does ~3.8 GFLOP in the chunked
 matmul form (``bound_bytes``, ``bound_flops``), so it is bound by
-device-memory bytes at the bf16 tensor-core rate; a decode step moves the
-~3.7 MB of state.  The kernel runs one block per (b, h) that walks the
-chunks of ``CHUNK`` steps in order with the state in shared memory
-(``grid_plan``, ``shared_bytes``).
+device-memory bytes; a decode step moves the ~3.7 MB of state.  A call
+takes one of three paths (``path``, chosen here and passed to the kernel
+library): the decode step (S = 1) streams the state through a grid over
+(b, h, row tiles of P); any longer call at the instantiated width runs
+three chunk-parallel launches (chunk states, state passing, chunk scan)
+through scratch the wrapper allocates (``scratch_floats``); other widths
+run one block per (b, h) walking the chunks in order.  ``plan`` and
+``shared_bytes`` state the launches exactly, for the tests.
 
 Contract (the Pallas kernel's, held by both versions):
 
@@ -30,25 +34,77 @@ Contract (the Pallas kernel's, held by both versions):
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
-THREADS = 256               # threads a block (kThreads in the .cu)
+THREADS = 256               # sequential kernel's threads (kThreads)
 CHUNK = 64                  # steps a chunk (kL in the .cu)
+STEP_ROWS = 8               # decode step: rows of P a block (kStepRows)
+CHUNK_THREADS = 128         # chunk kernels' threads (kCThreads)
+PASS_THREADS = 256          # state pass's threads, 4 floats each
+CHUNKED = ((64, 64),)       # (P, N) the chunk kernels are built for
+PATHS = ("step", "chunked", "sequential")   # the .cu's path numbers
+_PAD = 8                    # chunk kernels' row padding (elements)
 _SMEM_LIMIT = 232_448       # dynamic shared memory a block may use (bytes)
 
 
-def grid_plan(B: int, H: int) -> Tuple[int]:
-    """The launch grid ``(B * H,)``: one block per (batch row, head)."""
-    return (B * H,)
+def path(S: int, P: int, N: int) -> str:
+    """``"step"`` (S = 1), ``"chunked"`` (S > 1 at a width in ``CHUNKED``,
+    one chunk when S <= CHUNK) or ``"sequential"``: the kernels a call
+    launches."""
+    if S == 1:
+        return "step"
+    if (P, N) in CHUNKED:
+        return "chunked"
+    return "sequential"
+
+
+def plan(B: int, S: int, H: int, P: int, N: int,
+         itemsize: int = 2) -> List[Tuple[str, Tuple[int, ...], int, int]]:
+    """The launches of one call, in order: ``(kernel, grid, threads,
+    dynamic shared bytes)``; ``itemsize`` is x's element size."""
+    kind = path(S, P, N)
+    if kind == "step":
+        return [("ssd_step_kernel", (B * H, -(-P // STEP_ROWS)),
+                 32 * STEP_ROWS, 0)]
+    if kind == "sequential":
+        return [("ssd_scan_kernel", (B * H,), THREADS,
+                 shared_bytes(P, N))]
+    nc = -(-S // CHUNK)
+    state, scan = _chunk_shared(P, N, itemsize)
+    return [("ssd_chunk_state_kernel", (B * H, nc), CHUNK_THREADS, state),
+            ("ssd_state_pass_kernel",
+             (B * H, -(-P * N // (4 * PASS_THREADS))), PASS_THREADS, 0),
+            ("ssd_chunk_scan_kernel", (B * H, nc), CHUNK_THREADS, scan)]
 
 
 def shared_bytes(P: int, N: int) -> int:
-    """Dynamic shared memory of a block (``smem_floats`` in the .cu): B,
-    C^T, x and M^T of a chunk, the state, and four vectors of a chunk."""
+    """Dynamic shared memory of a sequential block (``smem_floats`` in the
+    .cu): B, C^T, x and M^T of a chunk, the state, three f32 vectors of a
+    chunk and its f64 cumsum."""
     L = CHUNK
-    return 4 * (L * N + N * L + L * P + L * L + N * P + 4 * L)
+    return 4 * (L * N + N * L + L * P + L * L + N * P + 5 * L)
+
+
+def _chunk_shared(P: int, N: int, itemsize: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the chunk-state and chunk-scan blocks
+    (``Chunk`` in the .cu): padded tiles of x's type and three vectors of
+    a chunk (dt and a third in f32, the cumsum in f64)."""
+    L = CHUNK
+    XP, NP, LP = P + _PAD, N + _PAD, L + _PAD
+    vecs = (4 + 8 + 4) * L
+    state = itemsize * (L * XP + L * NP) + vecs
+    scan = itemsize * (2 * L * NP + L * XP + P * NP + L * LP) + vecs
+    return state, scan
+
+
+def scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
+    """f32 scratch of a chunked call: a P x N state and a decay for every
+    (b, h, chunk); 0 on the other paths."""
+    if path(S, P, N) != "chunked":
+        return 0
+    return B * H * -(-S // CHUNK) * (P * N + 1)
 
 
 def bound_bytes(dt, Bc, x, h0_given: bool = True) -> int:
@@ -133,9 +189,10 @@ def _check_launchable(dt, Bc, Cc, x, A, h0) -> None:
     if P % 4 or N % 4 or P == 0 or N == 0:
         raise ValueError(f"head_dim {P} and d_state {N} must be positive "
                          f"multiples of 4")
-    if shared_bytes(P, N) > _SMEM_LIMIT:
-        raise ValueError(f"P={P}, N={N} needs {shared_bytes(P, N)} bytes of "
-                         f"shared memory (> {_SMEM_LIMIT})")
+    need = max(smem for *_, smem in plan(B, S, H, P, N, x.element_size()))
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"P={P}, N={N} needs {need} bytes of shared memory "
+                         f"(> {_SMEM_LIMIT})")
     if A.dtype != torch.float32 or (h0 is not None
                                     and h0.dtype != torch.float32):
         raise TypeError(f"A and h0 must be float32, got {A.dtype}, "
@@ -175,6 +232,10 @@ def ssd_scan(dt, Bc, Cc, x, A, h0=None):
     lib = build.load()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    kind = path(S, P, N)
+    n_scratch = scratch_floats(B, S, H, P, N)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) \
+        if n_scratch else None
     strides = (ctypes.c_int64 * 10)(*dt.stride(), Bc.stride(0), Bc.stride(1),
                                     Cc.stride(0), Cc.stride(1),
                                     *x.stride()[:3])
@@ -183,7 +244,9 @@ def ssd_scan(dt, Bc, Cc, x, A, h0=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), x.data_ptr(),
              A.data_ptr(), None if h0 is None else h0.data_ptr(),
-             y.data_ptr(), h.data_ptr(), B, S, H, P, N, strides, stream)
+             y.data_ptr(), h.data_ptr(),
+             None if scratch is None else scratch.data_ptr(),
+             PATHS.index(kind), B, S, H, P, N, strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"cudaError_t {err}")

@@ -198,12 +198,29 @@ def test_attention_kernels_at_head_dim_112(cuda):
         assert (out.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("H,KH,D", [(16, 2, 128), (32, 32, 112)])
+def test_prefill_kernel_full_width_2048(cuda, H, KH, D):
+    """bf16 at the served widths (qwen2.5-3b, zamba2-7b's shared
+    attention) and the recompute arm's max_seq: 32 key tiles the last q
+    tile, 512 and 1024 (b, h, q tile) items."""
+    _fa_compare(cuda, 1, 2048, 2048, H, KH, D, torch.bfloat16, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_recompute_shape(cuda, dtype):
+    """The recompute arm's call: 300 queries at positions 1024 ... 1323
+    against 1324 keys (q_offset > 0, Sq < Sk, a ragged last q tile)."""
+    _fa_compare(cuda, 1, 300, 1324, 16, 2, 128, dtype, causal=True,
+                q_offset=1024)
+
+
 # tests/test_kernels.py's mamba-scan grid and tests/test_ssd_kernel.py's
-# SSD grid, and the full-width decode-step shapes
+# SSD grid, the full-width decode-step shapes, and a ragged two-row case
+# at zamba2's head width (the chunk-parallel path)
 MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16),
            (1, 1, 8192, 16)]
 SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
-            (2, 16, 1, 64, 32), (1, 1, 112, 64, 64)]
+            (2, 16, 1, 64, 32), (1, 1, 112, 64, 64), (2, 130, 2, 64, 64)]
 
 
 def _hold(out, want, dtype):
@@ -258,18 +275,24 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
         _hold(h, hw, dtype)
 
 
-@pytest.mark.parametrize("scan", ["mamba1", "ssd"])
+@pytest.mark.parametrize("scan", ["mamba1", "ssd", "ssd_chunked"])
 def test_scan_kernels_continue_and_freeze_under_masked_dt(cuda, scan):
     """[0:S] == [0:S/2] then [S/2:S] with carried h (1e-5), and dt = 0 past
     a live length leaves the state bit for bit as the live scan's."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    # the reference tests' continuation shapes
+    # the reference tests' continuation shapes, and zamba2's head width
+    # over four chunks (a chunk-aligned cut and live length)
+    live = 20
     if scan == "mamba1":
         fn, shapes = MS.mamba1_scan, [(1, 32, 32), (1, 32, 8), (1, 32, 8),
                                       (1, 32, 32), (32, 8)]
-    else:
+    elif scan == "ssd":
         fn, shapes = SD.ssd_scan, [(1, 32, 2), (1, 32, 4), (1, 32, 4),
                                    (1, 32, 2, 8), (2,)]
+    else:
+        fn, shapes = SD.ssd_scan, [(1, 256, 4), (1, 256, 64), (1, 256, 64),
+                                   (1, 256, 4, 64), (4,)]
+        live = 128
     dt, Bc, Cc, x, A = (torch.randn(s, generator=g, device=cuda)
                         for s in shapes)
     dt = torch.nn.functional.softplus(dt)
@@ -282,7 +305,6 @@ def test_scan_kernels_continue_and_freeze_under_masked_dt(cuda, scan):
                 x[:, S // 2:], A, h0=h1)
     assert (torch.cat([y1, y2], 1) - y_full).abs().max().item() <= 1e-5
     assert (h2 - h_full).abs().max().item() <= 1e-5
-    live = 20
     masked = dt.clone()
     masked[:, live:] = 0
     _, h_pad = fn(masked, Bc, Cc, x, A)
@@ -315,3 +337,30 @@ def test_ssm_kernel_route_matches_reference_route(cuda, arch):
         assert (a - b).abs().max().item() <= 5e-4
     km.close()
     rm.close()
+
+
+@pytest.mark.parametrize("S", [1, 64, 65, 1024])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_kernel_full_width(cuda, S, with_h0, dtype):
+    """zamba2-7b's width (H 112, P 64, N 64) on both paths it takes: the
+    decode step (S = 1) and the chunk-parallel launches (64: one chunk;
+    65: a ragged second chunk; 1024: the served prompt)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    H, P, N = 112, 64, 64
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dt)
+    xbc = rand(1, S, H * P + 2 * N)
+    args = (torch.nn.functional.softplus(rand(1, S, H, dt=torch.float32)),
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:],
+            xbc[..., :H * P].reshape(1, S, H, P),
+            -torch.exp(rand(H, dt=torch.float32) * 0.3))
+    h0 = rand(1, H, P, N, dt=torch.float32) if with_h0 else None
+    before = SD.ssd_scan.launches
+    y, h = SD.ssd_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert SD.ssd_scan.launches == before + 1
+    yw, hw = SD.ssd_scan_plain(*args, h0=h0)
+    _hold(y, yw, dtype)
+    _hold(h, hw, dtype)

@@ -4,6 +4,8 @@
 the wrapper's refusals, and its tile and grid plan.  The CUDA kernel itself
 is held against the plain version in tests/test_torch_cuda.py and
 chip_smoke.py."""
+import collections
+
 import numpy as np
 import pytest
 
@@ -135,9 +137,21 @@ def test_refusals():
 
 
 def test_grid_and_tile_plan():
-    # the served prefill: 16 q tiles x 16 heads = 256 blocks
-    assert FA.grid_plan(1, 1024, 16) == (16, 16)
-    assert FA.grid_plan(2, 33, 4) == (8, 1)
+    # bf16: work items of 64 query rows, two a block; the served prefill's
+    # 16 q tiles x 16 heads = 256 items in 128 blocks
+    assert FA.grid_plan(1, 1024, 16) == (128,)
+    assert FA.grid_plan(2, 33, 4) == (4,)
+    assert FA.grid_plan(1, 40, 3) == (2,)            # an odd item count
+    assert FA.block_items(1, 1, 40, 3) == [(0, 2, 0)]
+    # items go longest causal tile first, a block's two are adjacent heads
+    # of one q tile
+    assert FA.work_items(1, 1024, 16)[:2] == [(0, 0, 15), (0, 1, 15)]
+    assert FA.block_items(127, 1, 1024, 16) == [(0, 14, 0), (0, 15, 0)]
+    assert FA.work_items(2, 33, 4)[:5] == [(0, 0, 0), (0, 1, 0), (0, 2, 0),
+                                           (0, 3, 0), (1, 0, 0)]
+    # f32: one block per (b, h) and q tile
+    assert FA.grid_plan(1, 1024, 16, torch.float32) == (16, 16)
+    assert FA.grid_plan(2, 33, 4, torch.float32) == (8, 1)
     # causal: q tile i walks key tiles [0, i] when Sq == Sk
     for i in range(16):
         assert FA.key_tiles(i, 1024, 1024, causal=True, window=None,
@@ -177,3 +191,49 @@ def test_walked_tiles_cover_every_live_key():
                         window is None or j > qpos - window)
                     if live:
                         assert lo <= j // FA.BLOCK_K < hi, (qt, i, j)
+
+
+# the served prefill shapes (qwen2.5-3b, zamba2-7b's shared attention; the
+# recompute arm's q_offset > 0, Sq < Sk) and the reference's grid
+SCHEDULE_CASES = [(1, 1024, 1024, 16, True, None, 0),
+                  (1, 2048, 2048, 16, True, None, 0),
+                  (1, 2048, 2048, 32, True, None, 0),
+                  (1, 1024, 2048, 16, True, None, 1024)] + [
+    (B, Sq, Sk, H, False, None, 0) for B, Sq, Sk, H, _, _ in SHAPES] + [
+    (2, 64, 64 + q_offset, 4, causal, window, q_offset)
+    for causal, window, q_offset in MASKS]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,causal,window,q_offset", SCHEDULE_CASES)
+def test_schedule_covers_every_item_and_live_key_once(B, Sq, Sk, H, causal,
+                                                      window, q_offset):
+    """The bf16 launch runs every (b, h, q tile) exactly once, and each
+    walks every live key of its rows exactly once (no kv split: one walk
+    a q tile, over disjoint key tiles)."""
+    n = -(-Sq // FA.BLOCK_Q)
+    seen = collections.Counter()
+    for x in range(FA.grid_plan(B, Sq, H)[0]):
+        items = FA.block_items(x, B, Sq, H)
+        assert 1 <= len(items) <= FA.CONSUMERS
+        seen.update(items)
+    assert set(seen) == {(b, h, qt) for b in range(B) for h in range(H)
+                         for qt in range(n)}
+    assert set(seen.values()) == {1}
+    kpos = np.arange(Sk)
+    for qt in range(n):
+        lo, hi = FA.key_tiles(qt, Sq, Sk, causal=causal, window=window,
+                              q_offset=q_offset)
+        walked = np.zeros(Sk, np.int64)
+        for kt in range(lo, hi):
+            walked[kt * FA.BLOCK_K:(kt + 1) * FA.BLOCK_K] += 1
+        qpos = q_offset + np.arange(qt * FA.BLOCK_Q,
+                                    min(Sq, (qt + 1) * FA.BLOCK_Q))
+        live = np.ones((len(qpos), Sk), bool)
+        if causal:
+            live &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            live &= kpos[None, :] > qpos[:, None] - window
+        assert (walked[live.any(0)] == 1).all(), qt
+    chain, mean = FA.schedule_chain(B, Sq, Sk, H, causal=causal,
+                                    window=window, q_offset=q_offset)
+    assert chain >= mean > 0

@@ -186,9 +186,27 @@ def test_kernel_launch_refusals_and_plan():
     meta = [t.to("meta") for t in (dt, Bc, Cc, x, A)]
     with pytest.raises(ValueError, match="CUDA"):
         SD.ssd_scan(*meta)
-    # zamba2-7b: H 112 heads of P 64, N 64 -> 112 blocks at batch 1, 83 KB
-    assert SD.grid_plan(1, 112) == (112,)
-    assert SD.shared_bytes(64, 64) == 82_944
+    # zamba2-7b (H 112 heads of P 64, N 64) at batch 1: a decode step is
+    # 112 x 8 blocks of 8 rows; any longer call three chunk-parallel
+    # launches, one chunk a head at 64 steps and 16 at 1024, whose bf16
+    # blocks take 19 and 46 KB; a sequential block would take 83 KB there
+    assert SD.plan(1, 1, 112, 64, 64) == [("ssd_step_kernel", (112, 8), 256,
+                                           0)]
+    assert SD.plan(1, 64, 112, 64, 64) == [
+        ("ssd_chunk_state_kernel", (112, 1), 128, 19_456),
+        ("ssd_state_pass_kernel", (112, 4), 256, 0),
+        ("ssd_chunk_scan_kernel", (112, 1), 128, 47_104)]
+    assert SD.shared_bytes(64, 64) == 83_200
+    assert SD.plan(1, 1024, 112, 64, 64) == [
+        ("ssd_chunk_state_kernel", (112, 16), 128, 19_456),
+        ("ssd_state_pass_kernel", (112, 4), 256, 0),
+        ("ssd_chunk_scan_kernel", (112, 16), 128, 47_104)]
+    assert [k for k, *_ in SD.plan(1, 65, 112, 64, 64)] == [
+        "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+        "ssd_chunk_scan_kernel"]
+    # a width without chunk kernels stays sequential at any length
+    assert SD.plan(1, 1024, 4, 16, 8, 4) == [("ssd_scan_kernel", (4,), 256,
+                                              SD.shared_bytes(16, 8))]
     for S, h0, nbytes in ((1, True, 3_699_840), (1024, False, 31_916_480)):
         dtm = torch.empty(1, S, 112, device="meta")
         xm = torch.empty(1, S, 112, 64, dtype=torch.bfloat16, device="meta")
@@ -197,3 +215,114 @@ def test_kernel_launch_refusals_and_plan():
         L = min(SD.CHUNK, S)
         assert SD.bound_flops(xm, bm) == 112 * (2 * S * L * 128
                                                 + 4 * S * 64 * 64)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 1, 112, 64, 64),
+                                       (1, 64, 112, 64, 64),
+                                       (1, 65, 112, 64, 64),
+                                       (1, 1024, 112, 64, 64),
+                                       (2, 2048, 112, 64, 64),
+                                       (1, 300, 4, 32, 16),
+                                       (2, 50, 3, 8, 4)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_plan_fits_shared_memory_and_sizes_scratch(B, S, H, P, N, itemsize):
+    """Every launch of the plan fits a block's 227 KB, and the scratch is
+    what the chunk kernels address: n_chunks P x N states and n_chunks
+    decays for every (b, h)."""
+    launches = SD.plan(B, S, H, P, N, itemsize)
+    assert all(smem <= 227 * 1024 for *_, smem in launches)
+    nc = -(-S // SD.CHUNK)
+    if SD.path(S, P, N) == "chunked":
+        assert launches[0][1] == launches[2][1] == (B * H, nc)
+        assert SD.scratch_floats(B, S, H, P, N) == B * H * nc * (P * N + 1)
+    else:
+        assert SD.scratch_floats(B, S, H, P, N) == 0
+
+
+def _three_pass(dt, Bc, Cc, x, A, h0=None, chunk=SD.CHUNK):
+    """The chunk-parallel kernels' algorithm in plain f32, chunk by chunk
+    as their grids run it: (1) each chunk's cum, own state contribution
+    x^T (B * exp(cum_L - cum_s) dt_s) and decay exp(cum_L); (2) the state
+    passed over the chunks in order, each chunk's starting state kept;
+    (3) each chunk's y = (C B^T * exp(cum_t - cum_s) dt_s, s <= t) x +
+    exp(cum_t) C h_start^T.  A ragged last chunk is zero-padded, as the
+    kernels zero-fill its rows."""
+    B, S, H = dt.shape
+    P, N = x.shape[-1], Bc.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    bf = torch.nn.functional.pad(Bc.float(), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(Cc.float(), (0, 0, 0, pad))
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    states, decays, cums = [], [], []
+    for c in range(nc):                                  # pass 1
+        sl = slice(c * chunk, (c + 1) * chunk)
+        cum = torch.cumsum(dtf[:, sl] * A.float(), dim=1)       # (B, L, H)
+        w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        states.append(torch.einsum("blhp,bln,blh->bhpn", xf[:, sl], bf[:, sl],
+                                   w))
+        decays.append(torch.exp(cum[:, -1]))                    # (B, H)
+        cums.append(cum)
+    h = torch.zeros((B, H, P, N)) if h0 is None else h0.float()
+    starts = []
+    for c in range(nc):                                  # pass 2
+        starts.append(h)
+        h = decays[c][:, :, None, None] * h + states[c]
+    ys = []
+    for c in range(nc):                                  # pass 3
+        sl = slice(c * chunk, (c + 1) * chunk)
+        cum = cums[c]
+        seg = (cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf"))           # (B, t, s, H)
+        m = torch.einsum("btn,bsn->bts", cf[:, sl], bf[:, sl])[..., None] \
+            * torch.exp(seg) * dtf[:, None, sl]
+        ys.append(torch.einsum("btsh,bshp->bthp", m, xf[:, sl])
+                  + torch.exp(cum)[..., None]
+                  * torch.einsum("btn,bhpn->bthp", cf[:, sl], starts[c]))
+    return torch.cat(ys, 1)[:, :S], h
+
+
+def _mirror_case(B, S, H, P, N, chunk, with_h0, tol):
+    jargs, targs = _both(_inputs(B, S, H, P, N, seed=8), "float32")
+    h0 = np.random.default_rng(9).standard_normal((B, H, P, N)).astype(
+        np.float32) if with_h0 else None
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h = _three_pass(*targs, h0=th0, chunk=chunk)
+    y_plain, h_plain = SD.ssd_scan_plain(*targs, h0=th0)
+    jy, jh = jax_ssd_scan(*jargs, h0=None if h0 is None else jnp.asarray(h0),
+                          chunk=chunk)
+    for got, want in ((y, y_plain), (h, h_plain), (y, jy), (h, jh)):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GRID)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_three_pass_mirror_matches_plain_and_jax(B, S, H, P, N, chunk,
+                                                 with_h0):
+    """The chunk-parallel decomposition is exact: in f32, at the reference
+    grid's chunks (several a sequence), it agrees with the sequential
+    plain scan and the JAX kernel at 1e-5."""
+    _mirror_case(B, S, H, P, N, chunk, with_h0, 1e-5)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_three_pass_mirror_at_the_kernels_chunk(with_h0):
+    """At the kernels' chunk of 64, f32 rounding of the chunked form
+    (exp of differences of a cumsum over 64 steps) reaches ~2e-5 against
+    the sequential scan: held at the reference's f32 tolerance, 1e-4."""
+    _mirror_case(1, 200, 3, 32, 16, SD.CHUNK, with_h0, _tol("float32"))
+
+
+def test_three_pass_mirror_freezes_state_past_aligned_live_length():
+    """dt = 0 past a chunk-aligned live length: the padded chunks add exact
+    zeros and decay by exp(0) = 1, so h equals the live scan's bit for
+    bit (the masked recompute's property)."""
+    dt, Bc, Cc, x, A = _inputs(1, 96, 3, 16, 8, seed=10)
+    dt[:, 48:] = 0
+    _, targs = _both((dt, Bc, Cc, x, A), "float32")
+    _, h_pad = _three_pass(*targs, chunk=16)
+    _, h_live = _three_pass(*(a[:, :48] for a in targs[:4]), targs[4],
+                            chunk=16)
+    assert torch.equal(h_pad, h_live)
