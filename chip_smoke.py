@@ -18,15 +18,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                both models (1024 and 2048 tokens, causal, bf16) and their
                recompute-shaped call (q_offset 1024, 300 queries).
                mamba1_scan and ssd_scan: the reference grids in f32 and
-               bf16 with and without h0, state continuation, and the
-               full-width decode step (S = 1), prompt (S = 1024; ssd_scan
-               also 64 and 65, with and without h0: each of its paths) and
-               the recompute arm's scan (S = 2048, dt masked past 1024,
-               whose state must equal the 1024-step scan's).  Times kernel,
+               bf16 with and without h0, state continuation (across chunk
+               boundaries at full width too), and the full-width decode
+               step (S = 1), prompt (S = 1024; ssd_scan also 64 and 65,
+               with and without h0: each of its paths; mamba1_scan also
+               2048, in f32 and bf16) and the recompute arm's scan (S =
+               2048, dt masked past 1024, and for mamba1_scan past 1048,
+               whose state must equal the live scan's).  Times kernel,
                plain version and, where one exists, one PyTorch library call at
                the full-width shapes, beside the least time the card could
-               take (the larger of bytes over its data-sheet memory rate
-               and operations over its data-sheet rate for their type).
+               take (the largest of bytes over its data-sheet memory rate,
+               operations over its data-sheet rate for their type and, for
+               mamba1_scan, exponentials over the special-function unit's
+               rate), and mamba1_scan's device time a launch by kernel.
 4. slice     — for each of full-width qwen2.5-3b (36 layers),
                falcon-mamba-7b (64 mamba1 layers) and zamba2-7b (81 mamba2
                layers, 13 shared-attention applications), in bf16 with
@@ -38,7 +42,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and checks every kernel's launches per decode step, per
                prefill forward and per recompute hand-off, the paper's
                downtime ordering, finite logits, and that an unswitched
-               session fed the same tokens gives the same logits.
+               session fed the same tokens gives the same logits.  Each
+               switch prints what could hide in its downtime
+               (``switch_probe``: the hand-off recompute's host dispatch
+               and device span, allocator counters, garbage collections,
+               threads, pending builds, SM clock and throttle reasons);
+               every full garbage collection of the run is logged.
 5. handoff   — both hand-off arms on the card: a switch pinned to the
                transfer arm must leave the logits bit-equal to the
                unswitched session's; after a switch pinned to the recompute
@@ -71,8 +80,10 @@ import gc
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -436,23 +447,47 @@ def tally():
 
 
 def time_scan(kernel, plain, n_sets: int, iters: int, plain_iters: int,
-              nbytes: int, flops: int, rate: float) -> dict:
+              nbytes: int, flops: int, rate: float, exps: int = 0) -> dict:
     """Kernel and plain version (``fn(i)`` on input set ``i % n_sets``),
     timed plain, kernel, kernel, plain by CUDA events, beside the bound:
-    the larger of ``nbytes`` over the memory rate and ``flops`` over
-    ``rate``."""
-    from repro_torch.core.hardware import H100
+    the largest of ``nbytes`` over the memory rate, ``flops`` over
+    ``rate`` and ``exps`` over the special-function unit's rate
+    (``bound_by`` "operations" for either of the last two, named in
+    ``bound_term``)."""
+    from repro_torch.core.hardware import H100, H100_EXP_RATE
     plain1 = cuda_ms(plain, plain_iters)
     kern1 = cuda_ms(kernel, iters)
     kern2 = cuda_ms(kernel, iters)
     plain2 = cuda_ms(plain, plain_iters)
-    t_bytes = nbytes / H100.hbm_bw * 1e3
-    t_ops = flops / rate * 1e3
+    terms = {"bytes": nbytes / H100.hbm_bw * 1e3,
+             "flops": flops / rate * 1e3,
+             "exps": exps / H100_EXP_RATE * 1e3}
+    term = max(terms, key=terms.get)
     return {"ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_flops": flops,
+            "bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms,
+            "bound_bytes": nbytes, "bound_flops": flops, "bound_exps": exps,
             "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
+
+
+def launch_device_us(call, reps: int = 5) -> dict:
+    """Device microseconds a launch of each CUDA kernel ``call()`` runs
+    (torch.profiler over ``reps`` calls after a warm-up), by kernel name
+    (template arguments kept, parameters dropped)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {e.key.replace("void (anonymous namespace)::", "")
+            .split("((")[0]: e.self_device_time_total / e.count
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def scan_row(name, source, replaces, errs, timed) -> dict:
@@ -470,23 +505,31 @@ def scan_row(name, source, replaces, errs, timed) -> dict:
 
 
 # tests/test_kernels.py's mamba-scan grid (its chunk and block_d have no
-# counterpart here) and tests/test_ssd_kernel.py's SSD grid, with a ragged
-# two-row case at zamba2's head width (the chunk-parallel path)
-MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16)]
+# counterpart here) and tests/test_ssd_kernel.py's SSD grid, with ragged
+# two-row cases at zamba2's head width (the chunk-parallel path) and for
+# mamba1_scan (a ragged last chunk; Di 37: element-wise loads, a ragged
+# channel block)
+MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16),
+           (2, 90, 37, 8)]
 SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
             (2, 16, 1, 64, 32), (2, 130, 2, 64, 64)]
 MS_FULL = dict(Di=8192, N=16, R=256)         # falcon-mamba-7b's layer
 SSD_FULL = dict(H=112, P=64, N=64)           # zamba2-7b's layer
 SCAN_S = (1, 1024)                           # a decode step, the prompt
 LIVE, PADDED = 1024, 2048                    # the recompute arm's scan
+# phase 4's switch_a recomputes at this live length: 16 + 8 decode steps
+# past the prompt, not a multiple of mamba1_scan's chunk
+LIVE_SWITCH = 1048
 CONT_ATOL = 1e-5                             # state continuation
 
 
 def phase_mamba_kernel(MS, gen) -> dict:
     """mamba1_scan against its plain version: the reference grid in f32
     and bf16 (B and C as column views of one projection, as the model's
-    split gives them), with and without h0; state continuation; the
-    full-width decode step, prompt and masked recompute scan; timings."""
+    split gives them), with and without h0; state continuation within one
+    chunk and across chunk boundaries at full width; the full-width decode
+    step, prompt and recompute-length scans in f32 and bf16; the masked
+    recompute scan at a chunk-aligned and a ragged live length; timings."""
     from repro_torch.core.hardware import H100_F32_FLOPS
     errs, rel, hold = tally()
 
@@ -509,57 +552,90 @@ def phase_mamba_kernel(MS, gen) -> dict:
         hold(h, hw, f"mamba1_scan h {what}", bf16)
         return y, h
 
+    def continuation(args, cut):
+        y_full, h_full = MS.mamba1_scan(*args)
+        y1, h1 = MS.mamba1_scan(*(a[:, :cut] for a in args[:4]), args[4])
+        y2, h2 = MS.mamba1_scan(*(a[:, cut:] for a in args[:4]), args[4],
+                                h0=h1)
+        return max(max_diff(torch.cat([y1, y2], 1), y_full),
+                   max_diff(h2, h_full))
+
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, Di, N in MS_GRID:
             args = inputs(B, S, Di, N, dtype)
             compare(args, None, f"{dtype} {(B, S, Di, N)}")
             compare(args, rand((B, Di, N)), f"{dtype} {(B, S, Di, N)} h0")
-    # tests/test_kernels.py's continuation: [0:S] == [0:S/2] then [S/2:S]
-    args = inputs(1, 32, 32, 8, torch.float32)
-    y_full, h_full = MS.mamba1_scan(*args)
-    y1, h1 = MS.mamba1_scan(*(a[:, :16] for a in args[:4]), args[4])
-    y2, h2 = MS.mamba1_scan(*(a[:, 16:] for a in args[:4]), args[4], h0=h1)
-    cont = max(max_diff(torch.cat([y1, y2], 1), y_full),
-               max_diff(h2, h_full))
-    check(cont <= CONT_ATOL, f"mamba1_scan continuation differs by {cont}")
     Di, N, R = (MS_FULL[k] for k in ("Di", "N", "R"))
-    for S in SCAN_S:
-        compare(inputs(1, S, Di, N, torch.bfloat16, R),
-                rand((1, Di, N)) if S == 1 else None, f"full width S={S}")
-    # the recompute arm: dt = 0 past the live length leaves h as it was
+    # tests/test_kernels.py's continuation, [0:32] == [0:16], [16:32] (one
+    # chunk), and at full width over four chunks cut at a chunk boundary
+    conts = {"reference (1, 32, 32, 8), cut 16":
+             continuation(inputs(1, 32, 32, 8, torch.float32), 16),
+             f"full width S 256, cut {2 * MS.CHUNK}":
+             continuation(inputs(1, 256, Di, N, torch.float32, R),
+                          2 * MS.CHUNK)}
+    cont = max(conts.values())
+    check(cont <= CONT_ATOL, f"mamba1_scan continuation differs: {conts}")
+    # every launch plan at full width: the step (one launch, from h0), the
+    # prompt and the recompute's max_seq (three launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, LIVE, PADDED):
+            compare(inputs(1, S, Di, N, dtype, R),
+                    rand((1, Di, N)) if S == 1 else None,
+                    f"full width {dtype} S={S}")
+    # the recompute arm: dt = 0 past the live length leaves h as it was,
+    # at a chunk-aligned live length and at phase 4's ragged one
     dt, Bc, Cc, x, A = inputs(1, PADDED, Di, N, torch.bfloat16, R)
-    dt[:, LIVE:] = 0
-    _, h_pad = compare((dt, Bc, Cc, x, A), None, f"masked S={PADDED}")
-    _, h_live = MS.mamba1_scan(dt[:, :LIVE], Bc[:, :LIVE], Cc[:, :LIVE],
-                               x[:, :LIVE], A)
-    check(torch.equal(h_pad, h_live), "mamba1_scan: masked steps moved h")
+    for live in (LIVE, LIVE_SWITCH):
+        masked = dt.clone()
+        masked[:, live:] = 0
+        _, h_pad = compare((masked, Bc, Cc, x, A), None,
+                           f"masked S={PADDED} live {live}")
+        _, h_live = MS.mamba1_scan(masked[:, :live], Bc[:, :live],
+                                   Cc[:, :live], x[:, :live], A)
+        check(torch.equal(h_pad, h_live),
+              f"mamba1_scan: masked steps moved h (live {live})")
+    del dt, Bc, Cc, x, A, masked
     print(f"[kernel] mamba1_scan matches its plain version: max abs err "
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|); "
-          f"continuation {cont:.3e} (limit {CONT_ATOL}); masked scan's "
-          f"state equal to the live one's")
+          f"continuation {conts} (limit {CONT_ATOL}); masked scans' states "
+          f"equal to the live ones' at live {LIVE} and {LIVE_SWITCH}")
 
     timed = []
-    for S in SCAN_S:
-        one = inputs(1, S, Di, N, torch.bfloat16, R)
+    for S in SCAN_S + (PADDED,):
+        # the recompute's scan: max_seq steps, dt = 0 past phase 4's live
+        # length; its bound counts the exps and operations of live steps
+        live = LIVE_SWITCH if S == PADDED else S
+
+        def make():
+            one = inputs(1, S, Di, N, torch.bfloat16, R)
+            one[0][:, live:] = 0
+            return one
+        sets = [make()]
         h0 = rand((1, Di, N)) if S == 1 else None
-        nbytes = MS.bound_bytes(one[0], one[1], one[3], h0 is not None)
+        nbytes = MS.bound_bytes(sets[0][0], sets[0][1], sets[0][3],
+                                h0 is not None)
         n = max(2, -(-128 * 2 ** 20 // nbytes))
-        sets = [one] + [inputs(1, S, Di, N, torch.bfloat16, R)
-                        for _ in range(n - 1)]
+        sets += [make() for _ in range(n - 1)]
         h0s = [h0 if h0 is None else rand((1, Di, N)) for _ in range(n)]
+        x_live = sets[0][3][:, :live]
         t = time_scan(
             lambda i: MS.mamba1_scan(*sets[i % n], h0=h0s[i % n]),
             lambda i: MS.mamba1_scan_plain(*sets[i % n], h0=h0s[i % n]),
             n, 200 if S == 1 else 20, 20 if S == 1 else 2, nbytes,
-            MS.bound_flops(one[3], one[1]), H100_F32_FLOPS)
-        t["shape"] = {"B": 1, "S": S, "Di": Di, "N": N, "dtype": "bfloat16",
-                      "h0": h0 is not None}
+            MS.bound_flops(x_live, sets[0][1]), H100_F32_FLOPS,
+            MS.bound_exps(x_live, sets[0][1]))
+        t["shape"] = {"B": 1, "S": S, "live": live, "Di": Di, "N": N,
+                      "dtype": "bfloat16", "h0": h0 is not None}
+        t["launches_device_us"] = launch_device_us(
+            lambda: MS.mamba1_scan(*sets[0], h0=h0s[0]))
         timed.append(t)
-        print(f"[kernel] mamba1_scan full-width bf16 S={S}: kernel "
-              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
-        del sets, h0s
+        print(f"[kernel] mamba1_scan full-width bf16 S={S} (live {live}): "
+              f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+              f"bound {t['bound_ms']:.6f} ms ({t['bound_term']}; terms "
+              f"{t['bound_terms_ms']}); device us a launch "
+              f"{t['launches_device_us']}")
+        del sets, h0s, x_live
     return scan_row("mamba1_scan", "src/repro_torch/csrc/mamba_scan.cu",
                     "src/repro/kernels/mamba_scan.py:53", errs, timed)
 
@@ -776,15 +852,127 @@ def scaled(counts: dict, k: int) -> dict:
 def device_kernels(cfg) -> tuple:
     """Parts of the names of the CUDA kernels of the family's main path
     (profiler): the prefill attention's (``flash_attention_hopper_kernel``
-    in bf16), flash-decode's two, and the scan's (ssd_scan's three
-    chunk-parallel passes, its decode step and its sequential kernel all
-    carry ``ssd_``)."""
+    in bf16), flash-decode's two, and the scan's (mamba1_scan's chunk and
+    carry kernels all carry ``mamba1_``; ssd_scan's three chunk-parallel
+    passes, its decode step and its sequential kernel ``ssd_``)."""
     names = ["flash_attention_", "decode_split_kernel",
              "decode_combine_kernel"]
     if cfg.ssm is not None:
-        names.append("mamba1_scan_kernel" if cfg.ssm.kind == "mamba1"
-                     else "ssd_")
+        names.append("mamba1_" if cfg.ssm.kind == "mamba1" else "ssd_")
     return tuple(names)
+
+
+# ---------------------------------------------------------------------------
+# what a switch's downtime could hide
+# ---------------------------------------------------------------------------
+
+def smi_clocks() -> str:
+    """The card's SM clock and its active clock-event (throttle) reasons."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,"
+                          "clocks_throttle_reasons.active",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    return (out.stdout or out.stderr).strip()
+
+
+class GcLog:
+    """Every garbage collection of the process, from ``gc.callbacks``:
+    (start on the ``perf_counter`` clock, generation, seconds, ``label``
+    as it stood: the phase the script was in)."""
+
+    def __init__(self):
+        self.events = []
+        self.label = "start"
+        self._t0 = None
+        self._origin = time.perf_counter()
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._t0 = now
+        elif self._t0 is not None:
+            self.events.append((self._t0, info["generation"],
+                                now - self._t0, self.label))
+            self._t0 = None
+
+    def offset(self, t: float) -> float:
+        """``t`` (``perf_counter``) in seconds into the log, as
+        ``summary`` gives a collection's start."""
+        return round(t - self._origin, 3)
+
+    def between(self, t0: float, t1: float) -> list:
+        return [(g, s) for t, g, s, _ in self.events if t0 <= t < t1]
+
+    def summary(self) -> dict:
+        """Counts, and each full (generation-2) collection as (phase,
+        seconds into the script, seconds it took)."""
+        full = [(label, self.offset(t), s)
+                for t, g, s, label in self.events if g == 2]
+        return {"collections": len(self.events), "gen2": len(full),
+                "gen2_max_s": max((s for *_, s in full), default=0.0),
+                "gen2_total_s": sum(s for *_, s in full),
+                "gen2_events": full}
+
+
+ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+              "num_sync_all_streams")
+
+
+@contextlib.contextmanager
+def switch_probe(mgr, session, gclog: GcLog):
+    """Read around one repartition, into the dict it yields: the recompute
+    hand-off's host dispatch and its span on the device (CUDA events on the
+    session's stream from before the first launch to after the last), the
+    serving thread's wall, CPU time and context switches over the switch,
+    the caching allocator's counters across it, the garbage collections
+    inside it and when it started (``GcLog``'s clock), the live threads and
+    pending builds before it, and the SM clock and throttle reasons before
+    and after."""
+    rec = {"clocks_before": smi_clocks(),
+           "threads": sorted(t.name for t in threading.enumerate()),
+           "pending_builds": mgr.pool.pending_builds(),
+           "loadavg": os.getloadavg(), "recomputes": []}
+    runner = session.runner
+    real = runner.recompute_fn
+
+    def timed(u0, u1):
+        fn = real(u0, u1)
+
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args)
+            end.record()
+            rec["recomputes"].append(
+                {"dispatch_s": time.perf_counter() - t0, "events": (start,
+                                                                    end)})
+            return out
+        return run
+    runner.recompute_fn = timed
+    mem0 = torch.cuda.memory_stats()
+    ru0 = resource.getrusage(resource.RUSAGE_THREAD)
+    cpu0, t0 = time.thread_time(), time.perf_counter()
+    try:
+        yield rec
+    finally:
+        t1 = time.perf_counter()
+        cpu = time.thread_time() - cpu0
+        ru1 = resource.getrusage(resource.RUSAGE_THREAD)
+        del runner.recompute_fn
+        mem1 = torch.cuda.memory_stats()
+        torch.cuda.synchronize()
+        for r in rec["recomputes"]:
+            start, end = r.pop("events")
+            r["device_span_s"] = start.elapsed_time(end) / 1e3
+        rec.update({
+            "at_s": gclog.offset(t0), "wall_s": t1 - t0, "thread_cpu_s": cpu,
+            "involuntary_ctx_switches": ru1.ru_nivcsw - ru0.ru_nivcsw,
+            "voluntary_ctx_switches": ru1.ru_nvcsw - ru0.ru_nvcsw,
+            "alloc": {k: mem1.get(k, 0) - mem0.get(k, 0) for k in ALLOC_KEYS},
+            "gc": gclog.between(t0, t1), "clocks_after": smi_clocks()})
 
 
 # ---------------------------------------------------------------------------
@@ -794,7 +982,7 @@ def device_kernels(cfg) -> tuple:
 PROMPT, MAX_SEQ = 1024, 2048
 
 
-def phase_slice(K, cfg, params, kw, splits) -> tuple:
+def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
     """Prompt ``PROMPT``, ``max_seq`` ``MAX_SEQ``, 16 decode steps at
     ``splits[0]``, then switch_b2, switch_a and pause_resume through
     ``splits[1:]`` with 8 steps after each, on a 5 Mbps link after the
@@ -823,11 +1011,13 @@ def phase_slice(K, cfg, params, kw, splits) -> tuple:
     print(f"[slice] {cfg.name}: {L} layers, d_model {cfg.d_model}, bf16, "
           f"prompt {PROMPT}, max_seq {MAX_SEQ}; set-up "
           f"{time.perf_counter() - sw:.2f} s; prefill launched "
-          f"{prefills[0]}")
+          f"{prefills[0]}; objects the garbage collector tracks "
+          f"{len(gc.get_objects())}")
 
     logits_seen = []
     step_ms = []            # edge + cloud wall of a step, unscaled
     recomputes = []         # launches of each recompute hand-off
+    probes = {}             # switch_probe's readings of each switch
 
     def serve(n: int, per_step_check: bool):
         edge_scale = mgr.active.edge_scale
@@ -844,8 +1034,13 @@ def phase_slice(K, cfg, params, kw, splits) -> tuple:
 
     def repartition(strategy, split):
         log = []
-        with counted(K, session, "recompute_layers", log):
-            rep = mgr.repartition(strategy, split)
+        done = len(mgr.pool.handoffs)
+        with switch_probe(mgr, session, gclog) as probe:
+            with counted(K, session, "recompute_layers", log):
+                rep = mgr.repartition(strategy, split)
+        probe["downtime_s"] = rep.downtime
+        probe["handoff_wall_s"] = [h.t_wall for h in mgr.pool.handoffs[done:]]
+        probes[strategy] = probe
         lo = min(rep.old_split, rep.new_split)
         hi = max(rep.old_split, rep.new_split)
         want = [expected(K, cfg, lo, hi, "full")] \
@@ -877,6 +1072,7 @@ def phase_slice(K, cfg, params, kw, splits) -> tuple:
               f"{rep.new_split}, downtime {rep.downtime:.6f} s, hand-off "
               f"{rep.handoff_mode} ({rep.t_handoff:.6f} s, "
               f"{rep.handoff_bytes} B)")
+        print(f"[slice] {rep.strategy} probe: {probes[rep.strategy]}")
     print(f"[slice] launches: {launches} on the path; per decode step "
           f"{per_step}; hand-offs' recomputes {recomputes}")
     check(rep_pr.downtime > rep_b2.downtime > rep_a.downtime,
@@ -933,6 +1129,7 @@ def phase_slice(K, cfg, params, kw, splits) -> tuple:
            "handoff": {"switch_b2": rep_b2.handoff_mode,
                        "switch_a": rep_a.handoff_mode,
                        "pause_resume": rep_pr.handoff_mode},
+           "switch_probes": probes,
            "logit_diff": {"before_switch": pre, "after_switch": post,
                           "max_abs_logit": scale}}
     return out, tokens, ref_logits, ckpt
@@ -1243,7 +1440,7 @@ def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
 MODELS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b")
 
 
-def run_model(K, arch, seed) -> dict:
+def run_model(K, arch, seed, gclog: GcLog) -> dict:
     """Full-width ``arch`` in bf16 (random weights from a generator seeded
     with ``seed``) through the stateful decode path, both hand-off arms
     and the stateless path; frees the weights and the checkpoint after."""
@@ -1271,14 +1468,17 @@ def run_model(K, arch, seed) -> dict:
               device="cuda")
     ckpt = None
     try:
+        gclog.label = f"{arch} phase 4"
         sl, tokens, ref_logits, ckpt = phase_slice(K, cfg, params, kw,
-                                                   splits)
+                                                   splits, gclog)
         sl["checkpoint_bytes"] = os.path.getsize(ckpt)
         free_memory()
+        gclog.label = f"{arch} phase 5"
         sl["handoff_checks"] = phase_handoff(K, cfg, params, kw, tokens,
                                              ref_logits, splits)
         del ref_logits
         free_memory()
+        gclog.label = f"{arch} phase 6"
         st = phase_stateless(K, cfg, params, ckpt, seed, splits)
     finally:
         if ckpt is not None:
@@ -1324,14 +1524,19 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[device] {smi}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}")
+    max_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader",
+         "-i", "0"], capture_output=True, text=True, timeout=60)
+    print(f"[device] {smi}; max SM clock {max_clock.stdout.strip()}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # phase 2: build
     t_build = build.build(force=True)
     print(f"[build] {build.library_path().name} built in {t_build:.2f} s")
 
     # phase 3: kernels
+    gclog = GcLog()
+    gclog.label = "phase 3"
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {"flash_decode_attention": phase_kernel(FD, gen),
             "flash_attention": phase_prefill_kernel(FA, gen),
@@ -1342,7 +1547,7 @@ def main() -> None:
                 "mamba1_scan": MS.mamba1_scan, "ssd_scan": SD.ssd_scan})
 
     # phases 4-6: each model's stateful and stateless paths
-    models = [run_model(K, arch, args.seed) for arch in MODELS]
+    models = [run_model(K, arch, args.seed, gclog) for arch in MODELS]
     for name, row in rows.items():
         by_path = {}
         for m in models:
@@ -1357,7 +1562,8 @@ def main() -> None:
 
     # phase 7: report
     wall = time.perf_counter() - t_start
-    print(f"[done] the whole script took {wall:.1f} s")
+    print(f"[done] the whole script took {wall:.1f} s; garbage "
+          f"collections {gclog.summary()}")
     print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
                       "wall_s": wall, "models": models}))
     print(smi)

@@ -30,6 +30,13 @@ H100 = DeviceSpec("h100_sxm", flops=989e12, hbm_bw=3.35e12,
                   mem_bytes=80 * 2 ** 30)
 # its float32 rate outside the tensor cores (the scans' elementwise work)
 H100_F32_FLOPS = 67e12
+# its exponentials: the special-function unit (MUFU.EX2) completes 16 a
+# clock on each SM of compute capability 9.0 (CUDA C++ Programming Guide,
+# the arithmetic-instruction throughput table), on 132 SMs at the 1,980
+# MHz that ``nvidia-smi --query-gpu=clocks.max.sm`` reports for the card
+H100_SMS = 132
+H100_MAX_SM_CLOCK_HZ = 1.98e9
+H100_EXP_RATE = 16 * H100_SMS * H100_MAX_SM_CLOCK_HZ     # exps/s
 
 # paper testbed analogue: edge is ~4x weaker than cloud (4 vs 8 cores,
 # and the paper's edge VM has half the RAM); exact ratio only shifts the

@@ -424,6 +424,11 @@ class PipelinePool:
         with self._lock:
             return self._pending.get(key)
 
+    def pending_builds(self) -> int:
+        """Background builds submitted and not landed yet."""
+        with self._lock:
+            return len(self._pending)
+
     def submit_build(self, key, *, owns_weights: bool = False,
                      cold: bool = False, reuse: bool = True,
                      standby: bool = False, enforce_budget: bool = False,

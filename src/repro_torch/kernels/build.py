@@ -128,7 +128,8 @@ def load() -> ctypes.CDLL:
             I64P = ctypes.POINTER(ctypes.c_int64)
             for name in ("mamba1_scan_f32", "mamba1_scan_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I64P, P]
+                fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               I64P, P]
                 fn.restype = I
             for name in ("ssd_scan_f32", "ssd_scan_bf16"):
                 fn = getattr(lib, name)

@@ -7,12 +7,16 @@ Replaces the Pallas TPU kernel ``mamba1_scan``
 hand-written CUDA kernel in ``repro_torch/csrc/mamba_scan.cu``; on a CPU
 tensor the wrapper runs the plain PyTorch version below.
 
-What bounds it on an H100: each (b, d, n) does about seven f32 operations
-a step on inputs read once (``bound_flops``), and dt, x and y move 2 bytes
-an element in bf16 (``bound_bytes``): a served prefill (Di 8192, N 16,
-1024 tokens) moves ~50 MB, a decode step the ~1.6 MB of state, so it is
-bound by device-memory bytes.  The kernel runs one thread per (b, d, n)
-with h in a register for the whole sequence (``grid_plan``).
+What bounds it on an H100: every (b, t, d, n) needs one exponential on
+the special-function unit (``bound_exps``, at ``H100_EXP_RATE``) beside
+six f32 operations (``bound_flops``), and dt, x and y move 2 bytes an
+element in bf16 (``bound_bytes``).  A served prefill (Di 8192, N 16, 1024
+tokens) is bound by its exps (32 us, against 15 us of bytes); a decode
+step, moving the ~1.6 MB of state, by bytes.  The kernel is chunk-parallel
+in time: chunks of ``CHUNK`` steps from t = 0, and three launches (chunk
+states, a carry over the chunks, outputs) through scratch this wrapper
+allocates, or only the last when S <= ``CHUNK`` (``plan``, chosen here and
+passed to the kernel library).
 
 Contract (the Pallas kernel's, held by both versions):
 
@@ -22,26 +26,70 @@ Contract (the Pallas kernel's, held by both versions):
 * ``h_t = exp(dt_t * A) * h + (dt_t * x_t) * B_t`` and
   ``y_t = sum_n h_t * C_t`` with every input cast to f32 first;
 * returns y ``(B, S, Di)`` in x's dtype and the final h ``(B, Di, N)`` f32;
-* dt = 0 leaves h unchanged (the masked recompute's padded steps).
+* dt = 0 leaves h unchanged (the masked recompute's padded steps); the
+  kernel's final state is then bit-equal to the live scan's at any live
+  length.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
-THREADS = 256               # threads a block (kThreads in the .cu)
+CHUNK = 64                  # steps a chunk (kL in the .cu)
 TILE_S = 32                 # time steps staged a tile (kTS in the .cu)
-STATE_SIZES = (4, 8, 16, 32)    # N the kernel takes: N lanes a channel
-FLOPS_PER_STATE_STEP = 7    # dt*A, exp, decay*h, (dt*x)*B, +, h*C, sum
+CHANNELS = 64               # channels a chunk block (kC)
+# states a thread (N / that threads a channel) of the chunk-state pass, of
+# the outputs pass over several chunks, and of the outputs pass alone
+# (kGState, kGScan, kGStep)
+STATES_A_THREAD = {"state": 8, "scan": 8, "step": 2}
+CARRY_THREADS = 256         # carry kernel: (d, n) states a block
+STATE_SIZES = (4, 8, 16, 32)    # N the kernel takes
+FLOPS_PER_STATE_STEP = 6    # dt*A, decay*h, (dt*x)*B, +, h*C, sum over n
 
 
-def grid_plan(B: int, Di: int, N: int) -> Tuple[int, int]:
-    """The launch grid ``(channel blocks, B)``: a block of ``THREADS``
-    threads holds ``THREADS // N`` channels, one thread per state."""
-    cpb = THREADS // N
-    return -(-Di // cpb), B
+def n_chunks(S: int) -> int:
+    """Chunks of ``CHUNK`` steps a call of S steps covers (one at least):
+    chunk c holds steps [c * CHUNK, (c + 1) * CHUNK), whatever S is."""
+    return max(1, -(-S // CHUNK))
+
+
+def plan(B: int, S: int, Di: int, N: int,
+         itemsize: int = 2) -> List[Tuple[str, Tuple[int, ...], int, int]]:
+    """The launches of one call, in order: ``(pass, grid, threads,
+    static shared bytes)``; ``itemsize`` is x's element size.  Several
+    chunks take three launches, one chunk (S <= ``CHUNK``) only the last.
+    The chunk-state and chunk-scan passes are instantiations of one
+    template, ``mamba1_chunk_kernel``, with their own states a thread
+    (``STATES_A_THREAD``)."""
+    nc = n_chunks(S)
+    blocks = -(-Di // CHANNELS)
+
+    def threads(kind):
+        return CHANNELS * N // min(STATES_A_THREAD[kind], N)
+    if nc == 1:
+        return [("mamba1_chunk_scan_kernel", (blocks, 1, B), threads("step"),
+                 shared_bytes(N, itemsize, True))]
+    return [("mamba1_chunk_state_kernel", (blocks, nc - 1, B),
+             threads("state"), shared_bytes(N, itemsize, False)),
+            ("mamba1_carry_kernel", (-(-Di * N // CARRY_THREADS), B),
+             CARRY_THREADS, 0),
+            ("mamba1_chunk_scan_kernel", (blocks, nc, B), threads("scan"),
+             shared_bytes(N, itemsize, True))]
+
+
+def shared_bytes(N: int, itemsize: int, outputs: bool) -> int:
+    """Static shared memory of a chunk block: a tile of dt and x (and, in
+    the outputs pass, y) in x's type, and of B and C in f32."""
+    return TILE_S * ((3 if outputs else 2) * CHANNELS * itemsize + 2 * N * 4)
+
+
+def scratch_floats(B: int, S: int, Di: int, N: int) -> int:
+    """f32 scratch of a call: an N-state and a sum of dt for every (b,
+    chunk, d) when there are several chunks, else 0."""
+    nc = n_chunks(S)
+    return 0 if nc == 1 else B * nc * Di * (N + 1)
 
 
 def bound_bytes(dt, Bc, x, h0_given: bool = True) -> int:
@@ -56,10 +104,17 @@ def bound_bytes(dt, Bc, x, h0_given: bool = True) -> int:
 
 
 def bound_flops(x, Bc) -> int:
-    """f32 operations the recurrence needs: ``FLOPS_PER_STATE_STEP`` for
-    each (b, t, d, n)."""
+    """f32 operations the recurrence needs besides its exponentials:
+    ``FLOPS_PER_STATE_STEP`` for each (b, t, d, n)."""
     B, S, Di = x.shape
     return FLOPS_PER_STATE_STEP * B * S * Di * Bc.shape[-1]
+
+
+def bound_exps(x, Bc) -> int:
+    """Exponentials the recurrence needs: one ``exp(dt * A)`` for each
+    (b, t, d, n)."""
+    B, S, Di = x.shape
+    return B * S * Di * Bc.shape[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +185,9 @@ def _check_launchable(dt, Bc, Cc, x, A, h0) -> None:
         raise ValueError(f"empty input: x {tuple(x.shape)}")
     if max(S, Di) >= 2 ** 31:
         raise ValueError("S and Di must fit in 32 bits")
+    if n_chunks(S) >= 2 ** 16 or B >= 2 ** 16:
+        raise ValueError(f"{n_chunks(S)} chunks and batch {B} must each be "
+                         f"under 65536 (grid dimensions)")
 
 
 def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
@@ -155,6 +213,9 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     lib = build.load()
     y = torch.empty((B, S, Di), dtype=x.dtype, device=x.device)
     h = torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
+    chunked = len(plan(B, S, Di, N, x.element_size())) > 1
+    scratch = torch.empty(scratch_floats(B, S, Di, N), dtype=torch.float32,
+                          device=x.device) if chunked else None
     strides = (ctypes.c_int64 * 8)(dt.stride(0), dt.stride(1), x.stride(0),
                                    x.stride(1), Bc.stride(0), Bc.stride(1),
                                    Cc.stride(0), Cc.stride(1))
@@ -163,7 +224,9 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), x.data_ptr(),
              A.data_ptr(), None if h0 is None else h0.data_ptr(),
-             y.data_ptr(), h.data_ptr(), B, S, Di, N, strides, stream)
+             y.data_ptr(), h.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), int(chunked),
+             B, S, Di, N, strides, stream)
     if err != 0:
         raise RuntimeError(f"mamba1_scan kernel launch failed: "
                            f"cudaError_t {err}")

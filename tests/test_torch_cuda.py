@@ -215,10 +215,11 @@ def test_prefill_kernel_recompute_shape(cuda, dtype):
 
 
 # tests/test_kernels.py's mamba-scan grid and tests/test_ssd_kernel.py's
-# SSD grid, the full-width decode-step shapes, and a ragged two-row case
-# at zamba2's head width (the chunk-parallel path)
+# SSD grid, the full-width decode-step shapes, and ragged two-row cases at
+# zamba2's head width (the chunk-parallel path) and for mamba1_scan (a
+# ragged last chunk, and Di 37: element-wise loads, a ragged channel block)
 MS_GRID = [(1, 16, 32, 8), (2, 32, 64, 16), (1, 70, 48, 8), (2, 100, 96, 16),
-           (1, 1, 8192, 16)]
+           (1, 1, 8192, 16), (2, 90, 37, 8)]
 SSD_GRID = [(1, 32, 2, 16, 8), (2, 64, 4, 32, 16), (1, 50, 3, 8, 4),
             (2, 16, 1, 64, 32), (1, 1, 112, 64, 64), (2, 130, 2, 64, 64)]
 
@@ -275,17 +276,23 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
         _hold(h, hw, dtype)
 
 
-@pytest.mark.parametrize("scan", ["mamba1", "ssd", "ssd_chunked"])
+@pytest.mark.parametrize("scan", ["mamba1", "ssd", "ssd_chunked",
+                                  "mamba1_chunked"])
 def test_scan_kernels_continue_and_freeze_under_masked_dt(cuda, scan):
     """[0:S] == [0:S/2] then [S/2:S] with carried h (1e-5), and dt = 0 past
     a live length leaves the state bit for bit as the live scan's."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    # the reference tests' continuation shapes, and zamba2's head width
-    # over four chunks (a chunk-aligned cut and live length)
+    # the reference tests' continuation shapes, zamba2's head width over
+    # four chunks (a chunk-aligned cut and live length), and mamba1 over
+    # four chunks (a chunk-aligned cut, a live length inside a chunk)
     live = 20
     if scan == "mamba1":
         fn, shapes = MS.mamba1_scan, [(1, 32, 32), (1, 32, 8), (1, 32, 8),
                                       (1, 32, 32), (32, 8)]
+    elif scan == "mamba1_chunked":
+        fn, shapes = MS.mamba1_scan, [(1, 256, 64), (1, 256, 16),
+                                      (1, 256, 16), (1, 256, 64), (64, 16)]
+        live = 100
     elif scan == "ssd":
         fn, shapes = SD.ssd_scan, [(1, 32, 2), (1, 32, 4), (1, 32, 4),
                                    (1, 32, 2, 8), (2,)]
@@ -364,3 +371,59 @@ def test_ssd_scan_kernel_full_width(cuda, S, with_h0, dtype):
     yw, hw = SD.ssd_scan_plain(*args, h0=h0)
     _hold(y, yw, dtype)
     _hold(h, hw, dtype)
+
+
+def _mamba_full_width(cuda, S, dtype, seed):
+    """falcon-mamba-7b's layer (Di 8192, N 16; B and C column views of the
+    x_proj output, dt_rank 256)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Di, N, R = 8192, 16, 256
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dt)
+    dbc = rand(1, S, R + 2 * N)
+    return (torch.nn.functional.softplus(rand(1, S, Di, dt=torch.float32))
+            .to(dtype), dbc[..., R:R + N], dbc[..., R + N:], rand(1, S, Di),
+            -torch.exp(rand(Di, N, dt=torch.float32) * 0.2))
+
+
+@pytest.mark.parametrize("S", [1, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_scan_kernel_full_width(cuda, S, dtype):
+    """Every launch plan at falcon-mamba-7b's width: the decode step (the
+    output pass alone, from h0), the prompt and the recompute's max_seq
+    (chunk states, carry, outputs)."""
+    args = _mamba_full_width(cuda, S, dtype, 9)
+    h0 = torch.randn(1, 8192, 16, device=cuda) if S == 1 else None
+    before = MS.mamba1_scan.launches
+    y, h = MS.mamba1_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert MS.mamba1_scan.launches == before + 1
+    yw, hw = MS.mamba1_scan_plain(*args, h0=h0)
+    _hold(y, yw, dtype)
+    _hold(h, hw, dtype)
+
+
+def test_mamba_scan_kernel_continues_across_chunks_at_full_width(cuda):
+    """f32 over four chunks, cut at a chunk boundary: the second call from
+    the first's state gives the whole call's y and h within 1e-5."""
+    args = _mamba_full_width(cuda, 256, torch.float32, 10)
+    cut = 2 * MS.CHUNK
+    y_full, h_full = MS.mamba1_scan(*args)
+    y1, h1 = MS.mamba1_scan(*(a[:, :cut] for a in args[:4]), args[4])
+    y2, h2 = MS.mamba1_scan(*(a[:, cut:] for a in args[:4]), args[4], h0=h1)
+    assert (torch.cat([y1, y2], 1) - y_full).abs().max().item() <= 1e-5
+    assert (h2 - h_full).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("live", [1024, 1048])
+def test_mamba_scan_kernel_masked_recompute_freezes(cuda, live):
+    """The recompute arm's scan (max_seq 2048, bf16) with dt = 0 past a
+    chunk-aligned live length and past the ragged one of a switch after
+    24 decode steps: the state equals the live scan's bit for bit."""
+    dt, Bc, Cc, x, A = _mamba_full_width(cuda, 2048, torch.bfloat16, 11)
+    dt[:, live:] = 0
+    _, h_pad = MS.mamba1_scan(dt, Bc, Cc, x, A)
+    _, h_live = MS.mamba1_scan(dt[:, :live], Bc[:, :live], Cc[:, :live],
+                               x[:, :live], A)
+    assert torch.equal(h_pad, h_live)

@@ -161,7 +161,8 @@ def test_wrapper_refuses_bad_operands(case):
 
 def test_kernel_launch_refusals_and_plan():
     """What the kernel needs beyond the contract (checked before a launch,
-    here on CPU tensors), its grid, and the bound at the served shapes."""
+    here on CPU tensors), its output pass's grid, and the bound at the
+    served shapes."""
     dt, x = torch.zeros(1, 4, 64), torch.zeros(1, 4, 64)
     dbc = torch.zeros(1, 4, 8 + 32)
     Bc, Cc = dbc[..., 8:24], dbc[..., 24:]       # the model's column views
@@ -183,11 +184,145 @@ def test_kernel_launch_refusals_and_plan():
     meta = [t.to("meta") for t in (dt, Bc, Cc, x, A)]
     with pytest.raises(ValueError, match="CUDA"):
         MS.mamba1_scan(*meta)
-    # falcon-mamba-7b: Di 8192, N 16 -> 16 channels a block, 512 blocks
-    assert MS.grid_plan(1, 8192, 16) == (512, 1)
-    assert MS.grid_plan(2, 100, 8) == (4, 2)
+    # falcon-mamba-7b: Di 8192, N 16 -> 64 channels a block, 128 blocks,
+    # in each of 16 chunks at the served prompt
+    assert MS.plan(1, 1024, 8192, 16)[-1][1] == (128, 16, 1)
+    assert MS.plan(2, 100, 96, 8)[-1][1] == (2, 2, 2)
     for S, h0, nbytes in ((1, True, 1_622_080), (1024, False, 51_445_760)):
         xb = torch.empty(1, S, 8192, dtype=torch.bfloat16, device="meta")
         bb = torch.empty(1, S, 16, dtype=torch.bfloat16, device="meta")
         assert MS.bound_bytes(xb, bb, xb, h0) == nbytes
-        assert MS.bound_flops(xb, bb) == 7 * S * 8192 * 16
+        assert MS.bound_flops(xb, bb) == 6 * S * 8192 * 16
+        assert MS.bound_exps(xb, bb) == S * 8192 * 16
+
+
+# ---------------------------------------------------------------------------
+# the chunk-parallel kernel's launch plan and algebra
+# ---------------------------------------------------------------------------
+
+def test_plan_launches_grids_and_scratch():
+    """The decode step and any S <= CHUNK run the output pass alone, from
+    h0, with no scratch; longer calls run chunk states, the carry and the
+    outputs, with an N-state and a sum of dt a (b, chunk, d) of scratch."""
+    assert MS.CHUNK == 64 and MS.CHANNELS == 64
+    # bf16, N 16: 8 threads a channel alone, 2 in three launches; tiles
+    # of 32 steps of dt, x (and y) for 64 channels of 2 bytes and of B, C
+    # (16 f32)
+    state_smem = 32 * (2 * 64 * 2 + 2 * 16 * 4)
+    scan_smem = 32 * (3 * 64 * 2 + 2 * 16 * 4)
+    assert (state_smem, scan_smem) == (12_288, 16_384)
+    assert MS.shared_bytes(16, 2, False) == state_smem
+    assert MS.shared_bytes(16, 2, True) == scan_smem
+    assert MS.shared_bytes(16, 4, True) == 28_672
+    for S in (0, 1, 17, 64):
+        assert MS.plan(1, S, 8192, 16) == [
+            ("mamba1_chunk_scan_kernel", (128, 1, 1), 512, scan_smem)]
+        assert MS.scratch_floats(1, S, 8192, 16) == 0
+    for S, nc, scratch_bytes in ((65, 2, 1_114_112), (1024, 16, 8_912_896),
+                                 (1048, 17, 9_469_952),
+                                 (2048, 32, 17_825_792)):
+        assert MS.n_chunks(S) == nc
+        assert MS.plan(1, S, 8192, 16) == [
+            ("mamba1_chunk_state_kernel", (128, nc - 1, 1), 128,
+             state_smem),
+            ("mamba1_carry_kernel", (512, 1), 256, 0),
+            ("mamba1_chunk_scan_kernel", (128, nc, 1), 128, scan_smem)]
+        assert 4 * MS.scratch_floats(1, S, 8192, 16) == scratch_bytes
+    # a ragged channel block and batch rows, f32, N 8: one thread a
+    # channel in three launches, four alone; N 4, one thread a channel
+    assert MS.plan(2, 100, 96, 8, 4) == [
+        ("mamba1_chunk_state_kernel", (2, 1, 2), 64, 32 * (512 + 64)),
+        ("mamba1_carry_kernel", (3, 2), 256, 0),
+        ("mamba1_chunk_scan_kernel", (2, 2, 2), 64, 32 * (768 + 64))]
+    assert MS.plan(1, 1, 96, 8, 4)[0][2] == 256
+    assert MS.plan(1, 100, 96, 4, 4)[0][2] == 64
+    # more chunks than a grid dimension takes are refused before a launch
+    S = 64 * 2 ** 16 + 1
+    seq = [torch.empty(1, S, w, device="meta") for w in (8, 4, 4, 8)]
+    with pytest.raises(ValueError, match="65536"):
+        MS._check_launchable(*seq, torch.zeros(8, 4), None)
+
+
+def _three_pass(dt, Bc, Cc, x, A, h0=None, L=MS.CHUNK):
+    """The CUDA kernel's algebra in plain torch f32: chunks of L steps from
+    t = 0; pass 1 scans every chunk but the last from zeros (its local end
+    state and its sum of dt), pass 2 carries h_start[c + 1] =
+    exp(A * sum dt_c) * h_start[c] + local_c from h0, pass 3 rescans each
+    chunk from h_start[c] for y, and the final state is the carry formula
+    applied to the last chunk."""
+    B, S, Di = x.shape
+    N = Bc.shape[-1]
+    dtf, bf, cf, xf = (t.float() for t in (dt, Bc, Cc, x))
+    Af = A.float()
+    zero = torch.zeros(B, Di, N)
+    nc = max(1, -(-S // L))
+
+    def scan(c, h):
+        ys, sdt = [], torch.zeros(B, Di)
+        for t in range(c * L, min(S, (c + 1) * L)):
+            d = dtf[:, t]
+            h = torch.exp(d[..., None] * Af) * h \
+                + (d * xf[:, t])[..., None] * bf[:, t, None, :]
+            sdt = sdt + d
+            ys.append((h * cf[:, t, None, :]).sum(-1))
+        return ys, h, sdt
+
+    def carry(sdt, h, local):
+        return torch.exp(sdt[..., None] * Af) * h + local
+
+    starts = [zero if h0 is None else h0.float()]
+    for c in range(nc - 1):                                 # passes 1, 2
+        _, local, sdt = scan(c, zero)
+        starts.append(carry(sdt, starts[-1], local))
+    ys = [y for c in range(nc) for y in scan(c, starts[c])[0]]   # pass 3
+    _, local, sdt = scan(nc - 1, zero)
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((B, 0, Di))
+    return y.to(x.dtype), carry(sdt, starts[-1], local), starts
+
+
+@pytest.mark.parametrize("B,S,Di,N,chunk,block_d", GRID)
+@pytest.mark.parametrize("L", [16, MS.CHUNK])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_three_pass_algebra_matches_jax_kernel_and_oracle(
+        B, S, Di, N, chunk, block_d, L, with_h0):
+    """The chunked algebra (S 70 and 100 are not multiples of either L)
+    against the JAX kernel in interpret mode and ``ref.mamba1_scan_ref``
+    at the reference tolerance, and the sequential plain version."""
+    arrays = _inputs(B, S, Di, N, seed=8)
+    h0 = np.random.default_rng(9).standard_normal((B, Di, N)).astype(
+        np.float32) if with_h0 else None
+    jargs, targs = _both(arrays, "float32")
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h, _ = _three_pass(*targs, h0=th0, L=L)
+    for want_y, want_h in (
+            jax_mamba1_scan(*jargs, h0=jh0, chunk=chunk, block_d=block_d),
+            ref.mamba1_scan_ref(*jargs, h0=jh0)):
+        _close(y, want_y, _tol("float32"))
+        _close(h, want_h, _tol("float32"))
+    yp, hp = MS.mamba1_scan_plain(*targs, h0=th0)
+    _close(y, yp.numpy(), 1e-5)
+    _close(h, hp.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("live", [1, 25, 48, 63, 64, 65, 100])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_three_pass_masked_state_is_bit_equal_at_any_live_length(live,
+                                                                 with_h0):
+    """dt = 0 past the live length (chunk-aligned or not, in the first
+    chunk or a later one) leaves the final state bit for bit as the live
+    scan's: chunk boundaries do not move with S, and a fully masked chunk
+    carries exactly (decay 1, local state 0).  The chunk starts the two
+    calls share are bit-equal too (S 1024 against S 2048 in the kernel)."""
+    S, L = 130, 16
+    dt, Bc, Cc, x, A = _inputs(2, S, 24, 8, seed=10)
+    dt[:, live:] = 0
+    _, targs = _both((dt, Bc, Cc, x, A), "float32")
+    h0 = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 24, 8)).astype(np.float32)) if with_h0 else None
+    _, h_pad, starts_pad = _three_pass(*targs, h0=h0, L=L)
+    _, h_live, starts_live = _three_pass(*(a[:, :live] for a in targs[:4]),
+                                         targs[4], h0=h0, L=L)
+    assert torch.equal(h_pad, h_live)
+    for a, b in zip(starts_pad, starts_live):
+        assert torch.equal(a, b)
