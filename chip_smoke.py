@@ -492,7 +492,11 @@ def launch_device_us(call, reps: int = 5) -> dict:
 
 def scan_row(name, source, replaces, errs, timed) -> dict:
     """The ``kernels`` line's entry of a scan: the decode step's shape
-    (S = 1, the most launches on the path) first, the prompt's beside it."""
+    (S = 1, the most launches on the path) first, the prompt's beside it.
+    The bound's modelled terms and exp count stay on the ``[kernel]``
+    lines: the ``kernels`` line carries measured numbers and ``bound_ms``."""
+    timed = [{k: v for k, v in t.items()
+              if k not in ("bound_terms_ms", "bound_exps")} for t in timed]
     first = timed[0]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
@@ -633,7 +637,8 @@ def phase_mamba_kernel(MS, gen) -> dict:
         print(f"[kernel] mamba1_scan full-width bf16 S={S} (live {live}): "
               f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
               f"bound {t['bound_ms']:.6f} ms ({t['bound_term']}; terms "
-              f"{t['bound_terms_ms']}); device us a launch "
+              f"{t['bound_terms_ms']}, {t['bound_exps']} exps); device us "
+              f"a launch "
               f"{t['launches_device_us']}")
         del sets, h0s, x_live
     return scan_row("mamba1_scan", "src/repro_torch/csrc/mamba_scan.cu",
@@ -875,25 +880,35 @@ def smi_clocks() -> str:
     return (out.stdout or out.stderr).strip()
 
 
+def rss_bytes() -> int:
+    """The process's resident set, from ``/proc/self/statm``."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
 class GcLog:
     """Every garbage collection of the process, from ``gc.callbacks``:
     (start on the ``perf_counter`` clock, generation, seconds, ``label``
-    as it stood: the phase the script was in)."""
+    as it stood: the phase the script was in, objects found unreachable,
+    resident bytes the collection gave back)."""
 
     def __init__(self):
         self.events = []
         self.label = "start"
         self._t0 = None
+        self._rss0 = 0
         self._origin = time.perf_counter()
         gc.callbacks.append(self._on_gc)
 
     def _on_gc(self, phase, info):
         now = time.perf_counter()
         if phase == "start":
-            self._t0 = now
+            self._t0, self._rss0 = now, rss_bytes()
         elif self._t0 is not None:
             self.events.append((self._t0, info["generation"],
-                                now - self._t0, self.label))
+                                now - self._t0, self.label,
+                                info["collected"],
+                                self._rss0 - rss_bytes()))
             self._t0 = None
 
     def offset(self, t: float) -> float:
@@ -902,16 +917,17 @@ class GcLog:
         return round(t - self._origin, 3)
 
     def between(self, t0: float, t1: float) -> list:
-        return [(g, s) for t, g, s, _ in self.events if t0 <= t < t1]
+        return [(g, s) for t, g, s, *_ in self.events if t0 <= t < t1]
 
     def summary(self) -> dict:
         """Counts, and each full (generation-2) collection as (phase,
-        seconds into the script, seconds it took)."""
-        full = [(label, self.offset(t), s)
-                for t, g, s, label in self.events if g == 2]
+        seconds into the script, seconds it took, objects it found
+        unreachable, resident MB it gave back)."""
+        full = [(label, self.offset(t), s, n, round(freed / 2 ** 20, 1))
+                for t, g, s, label, n, freed in self.events if g == 2]
         return {"collections": len(self.events), "gen2": len(full),
-                "gen2_max_s": max((s for *_, s in full), default=0.0),
-                "gen2_total_s": sum(s for *_, s in full),
+                "gen2_max_s": max((e[2] for e in full), default=0.0),
+                "gen2_total_s": sum(e[2] for e in full),
                 "gen2_events": full}
 
 
@@ -1012,7 +1028,7 @@ def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
           f"prompt {PROMPT}, max_seq {MAX_SEQ}; set-up "
           f"{time.perf_counter() - sw:.2f} s; prefill launched "
           f"{prefills[0]}; objects the garbage collector tracks "
-          f"{len(gc.get_objects())}")
+          f"{len(gc.get_objects())} (frozen {gc.get_freeze_count()})")
 
     logits_seen = []
     step_ms = []            # edge + cloud wall of a step, unscaled
@@ -1486,12 +1502,17 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
     del params
     peak = torch.cuda.max_memory_allocated()
     free_memory()
+    # the startup-heap freeze (core/heap.py) must pin nothing of a model
+    left = torch.cuda.memory_allocated()
+    check(left <= 2 ** 30, f"{arch} left {left} B on the card after its "
+          f"phases")
     wall = time.perf_counter() - t0
     print(f"[{arch}] phases 4-6 took {wall:.1f} s; checkpoint "
-          f"{sl['checkpoint_bytes']} B; peak device memory {peak} B")
+          f"{sl['checkpoint_bytes']} B; peak device memory {peak} B; "
+          f"left after freeing {left} B")
     return {"arch": arch, "num_layers": L, "splits": splits,
-            "wall_s": wall, "peak_device_bytes": peak, "stateful": sl,
-            "stateless": st}
+            "wall_s": wall, "peak_device_bytes": peak,
+            "left_device_bytes": left, "stateful": sl, "stateless": st}
 
 
 def free_memory() -> None:

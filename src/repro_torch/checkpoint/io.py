@@ -70,12 +70,18 @@ def load_pytree(path: str, like=None, device=None):
     if like is None:
         return {k: v.to(device) if device is not None else v
                 for k, v in flat.items()}
+    return _rebuild(like, flat)
 
-    def rebuild(sub, prefix=""):
-        if isinstance(sub, dict):
-            return {k: rebuild(v, f"{prefix}{k}/") for k, v in sub.items()}
-        if isinstance(sub, (list, tuple)):
-            t = type(sub)
-            return t(rebuild(v, f"{prefix}{i}/") for i, v in enumerate(sub))
-        return flat[prefix[:-1]].to(device=sub.device, dtype=sub.dtype)
-    return rebuild(like)
+
+def _rebuild(sub, flat, prefix=""):
+    """``sub``'s structure with each leaf from ``flat``, on the leaf's
+    device and in its dtype.  A module function, not a closure: a closure
+    that calls itself is a reference cycle, which would keep ``flat``, the
+    whole host copy of the checkpoint, alive until a full garbage
+    collection freed it on whichever thread ran then."""
+    if isinstance(sub, dict):
+        return {k: _rebuild(v, flat, f"{prefix}{k}/") for k, v in sub.items()}
+    if isinstance(sub, (list, tuple)):
+        return type(sub)(_rebuild(v, flat, f"{prefix}{i}/")
+                         for i, v in enumerate(sub))
+    return flat[prefix[:-1]].to(device=sub.device, dtype=sub.dtype)

@@ -72,6 +72,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.concurrency import (RANK_SESSION, RANK_STATEFUL_RUNNER,
                                           guarded_by, make_lock)
 from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC
+from repro_torch.core.heap import freeze_startup_heap
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.pipeline import BuildReport, RequestTiming
 from repro_torch.core.pool import PipelinePool
@@ -1136,6 +1137,7 @@ def make_stateful_manager(cfg: ArchConfig, params=None, *, split: int,
     the flash-attention kernel.  ``device`` defaults to the card."""
     from repro_torch.core.switching import PipelineManager
     dev = resolve_device(device)
+    freeze_startup_heap()       # once a process, before the first model
     if params is None:
         params = T.init_model(cfg, dtype=dtype, device=dev, seed=seed)
     runner = StatefulStageRunner(cfg, params, max_seq=max_seq,

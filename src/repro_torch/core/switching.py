@@ -1,8 +1,6 @@
 """PipelineManager: thin facade over the PipelinePool + strategy registry.
 
-The port's copy of ``repro/core/switching.py``, logic unchanged but for
-one addition: ``repartition`` runs the switch with the cyclic garbage
-collector paused (``collector_paused``).
+The port's copy of ``repro/core/switching.py``, logic unchanged.
 
 The paper's repartitioning mechanisms live in ``repro.core.strategies``
 as self-contained ``SwitchStrategy`` classes resolved by name through a
@@ -33,8 +31,6 @@ switching explicitly, and call ``drain()`` for an explicit barrier.
 """
 from __future__ import annotations
 
-import contextlib
-import gc
 from typing import Dict, Optional, Union
 
 from repro_torch.core.network import NetworkModel
@@ -42,26 +38,6 @@ from repro_torch.core.pool import PipelinePool, PoolEntry, PoolKey
 from repro_torch.core.strategies import (SwitchReport, SwitchStrategy,
                                    apply_handoff, available_strategies,
                                    get_strategy)
-
-
-@contextlib.contextmanager
-def collector_paused():
-    """Keep the cyclic garbage collector from starting inside the block.
-
-    A full (generation-2) collection walks every object the process
-    tracks, on whichever thread trips it: on the card, with full-width
-    models served, such collections took up to 0.46 s (PERF.md), longer
-    than a whole switch_b2, so one starting inside a switch adds its pause
-    to that switch's downtime.  Reference counting still frees acyclic
-    garbage at once; collection resumes, with its counts, after the
-    block.  A switch is one thread's work, so the block does not nest."""
-    was = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
 
 
 class PipelineManager:
@@ -131,9 +107,7 @@ class PipelineManager:
                     new_split: int, *, drain: bool = True) -> SwitchReport:
         if drain:
             self.pool.drain()       # settle background builds first
-        with collector_paused():    # no collection pause in the downtime
-            report = self.get_strategy(strategy).switch(self.pool,
-                                                        new_split)
+        report = self.get_strategy(strategy).switch(self.pool, new_split)
         apply_handoff(self.pool, report)   # stateful pools: stamp the
         return report                      # executed state hand-off
 

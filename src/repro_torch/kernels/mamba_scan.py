@@ -213,7 +213,7 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     lib = build.load()
     y = torch.empty((B, S, Di), dtype=x.dtype, device=x.device)
     h = torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
-    chunked = len(plan(B, S, Di, N, x.element_size())) > 1
+    chunked = n_chunks(S) > 1        # the three launches of ``plan``
     scratch = torch.empty(scratch_floats(B, S, Di, N), dtype=torch.float32,
                           device=x.device) if chunked else None
     strides = (ctypes.c_int64 * 8)(dt.stride(0), dt.stride(1), x.stride(0),
