@@ -935,6 +935,23 @@ ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
               "num_sync_all_streams")
 
 
+def host_counters() -> dict:
+    """The calling thread's user and system CPU seconds and page faults
+    (``getrusage``), and the machine's CPU seconds stolen by its
+    hypervisor (``/proc/stat``'s steal column, all CPUs)."""
+    ru = resource.getrusage(resource.RUSAGE_THREAD)
+    with open("/proc/stat") as f:
+        cpu = f.readline().split()
+    steal = int(cpu[8]) / os.sysconf("SC_CLK_TCK") if len(cpu) > 8 else 0.0
+    return {"user_s": ru.ru_utime, "sys_s": ru.ru_stime,
+            "minor_faults": ru.ru_minflt, "major_faults": ru.ru_majflt,
+            "steal_s": steal}
+
+
+def host_delta(c0: dict, c1: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c0}
+
+
 @contextlib.contextmanager
 def switch_probe(mgr, session, gclog: GcLog):
     """Read around one repartition, into the dict it yields: the recompute
@@ -943,8 +960,8 @@ def switch_probe(mgr, session, gclog: GcLog):
     serving thread's wall, CPU time and context switches over the switch,
     the caching allocator's counters across it, the garbage collections
     inside it and when it started (``GcLog``'s clock), the live threads and
-    pending builds before it, and the SM clock and throttle reasons before
-    and after."""
+    pending builds before it, the SM clock and throttle reasons before and
+    after, and ``host_counters`` across each recompute's dispatch."""
     rec = {"clocks_before": smi_clocks(),
            "threads": sorted(t.name for t in threading.enumerate()),
            "pending_builds": mgr.pool.pending_builds(),
@@ -958,13 +975,15 @@ def switch_probe(mgr, session, gclog: GcLog):
         def run(*args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            c0 = host_counters()
             t0 = time.perf_counter()
             start.record()
             out = fn(*args)
             end.record()
             rec["recomputes"].append(
                 {"dispatch_s": time.perf_counter() - t0, "events": (start,
-                                                                    end)})
+                                                                    end),
+                 "host": host_delta(c0, host_counters())})
             return out
         return run
     runner.recompute_fn = timed

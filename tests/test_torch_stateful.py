@@ -230,6 +230,38 @@ def test_recompute_reproduces_state():
     mgr.close()
 
 
+def test_standby_build_warms_the_handoff_and_leaves_the_state():
+    """A stateful pool's standby build runs the re-prefill that switching
+    to it would run (the moved layers, at the live length) once on
+    scratch input, so the switch's hand-off finds its working set cached;
+    the session's state is left bit-equal."""
+    _, tcfg = _cfgs("dense", num_layers=4)
+    mgr, s = make_stateful_manager(tcfg, split=1, net=NetworkModel(20.0),
+                                   prompt_len=PROMPT, max_seq=MAX_SEQ,
+                                   force_mode="recompute", device="cpu")
+    mgr.active.process()
+    runner, calls = s.runner, []
+    real = runner.recompute_fn
+
+    def spy(u0, u1):
+        calls.append((u0, u1))
+        return real(u0, u1)
+    runner.recompute_fn = spy
+    snap = s.snapshot()
+    mgr.build_standby(3)
+    assert calls == [(1, 3)]                 # layers 1 and 2 move
+    after = s.snapshot()
+    for k, v in snap["cache"].items():
+        assert torch.equal(after["cache"][k], v), k
+    for k in ("tokens", "bounds"):
+        assert torch.equal(after[k], snap[k]), k
+    assert after["pos"] == snap["pos"]
+    rep = mgr.repartition("switch_a", 3)
+    assert rep.handoff_mode == "recompute" and calls == [(1, 3)] * 2
+    del runner.recompute_fn
+    mgr.close()
+
+
 def test_entry_points_need_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults do not raise")
