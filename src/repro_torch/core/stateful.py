@@ -1101,7 +1101,8 @@ class StatefulPipelinePool(PipelinePool):
         build pays for them instead; the returned time includes it."""
         sw = Stopwatch()
         super().build_standby(split, owns_weights)
-        active = self.active_key
+        with self._lock:
+            active = self.active_key
         if active is not None:
             self.session.warm_recompute(active.split, split)
         return sw.elapsed()
