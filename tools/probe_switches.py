@@ -9,12 +9,12 @@ bf16, random weights from ``--seed``, prompt 1024, ``max_seq`` 2048, the
 kernels, 16 decode steps, then a 5 Mbps link). Each round is phase 4's
 first two switches: switch_b2 from half to a quarter of the depth, 8
 steps, ``build_standby`` at half, switch_a back, 8 steps.
-``--empty-cache`` returns the caching allocator's free blocks to the
-driver before switch_b2 and before the standby's build, so a hand-off
-whose working set no build left in the cache makes fresh ``cudaMalloc``s.
-Prints a JSON line a switch (``probe``) and, last, a summary: each
-strategy's hand-off walls and the switches whose hand-off took more than
-twice that strategy's median. Needs one CUDA card.
+``--empty-cache`` calls ``torch.cuda.empty_cache()`` before switch_b2
+and before the standby's build, so a hand-off whose working set no build
+left in the cache makes fresh ``cudaMalloc``s. Prints a JSON line a
+switch (``probe``) and, last, a summary: each strategy's hand-off walls
+and the switches whose hand-off took more than twice that strategy's
+median. Needs one CUDA card.
 """
 from __future__ import annotations
 
