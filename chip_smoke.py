@@ -155,6 +155,8 @@ FULL = dict(B=1, H=16, KH=2, S=2048, D=128)      # qwen2.5-3b decode shape
 ZFULL = dict(B=1, H=32, KH=32, S=2048, D=112)    # zamba2-7b's shared attn
 FULL_POS = (1, 17, 1024, 2048)
 TIMED_POS = 1024                                 # the served context length
+DEVICE_POS = (64, 1024, 2048)                    # device time a call read at
+DECODE_KERNEL = "flash_decode_kernel"            # its name in the profiler
 
 
 def phase_kernel(FD, gen) -> dict:
@@ -216,6 +218,8 @@ def phase_kernel(FD, gen) -> dict:
            "launches": None, "max_abs_err": max(errs.values()),
            "max_abs_err_by_dtype": errs,
            "ms": first["ms"], "kernel_ms": first["ms"],
+           "device_us_per_call": first["device_us_per_call"],
+           "host_us_per_call": first["host_us_per_call"],
            "plain_ms": first["plain_ms"], "library_ms": first["library_ms"],
            "library_max_abs_err": first["library_max_abs_err"],
            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -224,12 +228,46 @@ def phase_kernel(FD, gen) -> dict:
     return row
 
 
+def decode_device_us(FD, qs, ks, vs, pos: int, reps: int = 40) -> dict:
+    """The flash-decode kernel's device microseconds a call at ``pos``
+    (torch.profiler over ``reps`` calls on the rotating caches ``qs``,
+    ``ks``, ``vs``), checked to be one launch of ``DECODE_KERNEL`` a call
+    and no other device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = len(qs)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+    def call(i):
+        return FD.flash_decode_attention(qs[i % n], ks[i % n], vs[i % n],
+                                         pos=pos_t)
+    for i in range(3):
+        call(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            call(i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kern = [e for e in events if DECODE_KERNEL in e.key]
+    launches = sum(e.count for e in kern)
+    other = [e.key[:60] for e in events if DECODE_KERNEL not in e.key]
+    check(launches == reps and not other,
+          f"flash_decode at pos {pos}: {launches} {DECODE_KERNEL} launches "
+          f"in {reps} calls, other device work {other}")
+    return sum(e.self_device_time_total for e in kern) / reps
+
+
 def time_decode(FD, rand, B, H, KH, S, D) -> dict:
     """Kernel, plain version and one library call at a full-width decode
-    shape, bf16, at the served context length, beside the bound.  Caches
-    rotate over > 128 MB of copies, so every launch finds its cache out of
-    L2 as a decode step does (a step streams every layer's weights and
-    caches through L2 between two visits of one layer)."""
+    shape, bf16, at the served context length, beside the bound; the
+    kernel's device time a call at ``DEVICE_POS`` (torch.profiler) and
+    the wrapper's host time a call.  Caches rotate over > 128 MB of
+    copies, so every launch finds its cache out of L2 as a decode step
+    does (a step streams every layer's weights and caches through L2
+    between two visits of one layer)."""
     from repro_torch.core.hardware import H100
     dtype = torch.bfloat16
     per_call = 2 * B * KH * S * D * 2
@@ -245,8 +283,12 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
         return sdpa(qs[i % n].transpose(1, 2), ks[i % n], vs[i % n],
                     attn_mask=mask, enable_gqa=True)
 
+    def kernel(i):
+        return FD.flash_decode_attention(qs[i % n], ks[i % n], vs[i % n],
+                                         pos=pos_t)
+
     # the library call computes the same function: hold it to the kernel
-    ref = FD.flash_decode_attention(qs[0], ks[0], vs[0], pos=pos_t)
+    ref = kernel(0)
     lib_err = max_diff(library(0).transpose(1, 2), ref)
     lib_tol = LIB_RTOL * ref.float().abs().max().item()
     check(lib_err <= lib_tol, f"library yardstick disagrees: {lib_err} > "
@@ -255,13 +297,19 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
     # plain, kernel, kernel, plain: compare the two within one call
     plain1 = cuda_ms(lambda i: FD.flash_decode_attention_plain(
         qs[i % n], ks[i % n], vs[i % n], pos=pos_t), iters)
-    kern1 = cuda_ms(lambda i: FD.flash_decode_attention(
-        qs[i % n], ks[i % n], vs[i % n], pos=pos_t), iters)
-    kern2 = cuda_ms(lambda i: FD.flash_decode_attention(
-        qs[i % n], ks[i % n], vs[i % n], pos=pos_t), iters)
+    kern1 = cuda_ms(kernel, iters)
+    kern2 = cuda_ms(kernel, iters)
     plain2 = cuda_ms(lambda i: FD.flash_decode_attention_plain(
         qs[i % n], ks[i % n], vs[i % n], pos=pos_t), iters)
     lib_ms = cuda_ms(library, iters)
+    # the wrapper's host time a call: enqueue only, the device behind
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        kernel(i)
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    device_us = {p: decode_device_us(FD, qs, ks, vs, p) for p in DEVICE_POS}
     nbytes = FD.bound_bytes(qs[0], ks[0], TIMED_POS)
     flops = 4 * B * H * TIMED_POS * D
     t_bytes = nbytes / H100.hbm_bw * 1e3
@@ -272,11 +320,15 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
            "library_ms": lib_ms, "library_max_abs_err": lib_err,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "device_us_per_call": device_us, "host_us_per_call": host_us,
+           "n_split": FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1]),
            "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
     print(f"[kernel] flash_decode full-width bf16 {out['shape']}: kernel "
           f"{out['ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, library "
           f"{lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
-          f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}); device time a "
+          f"call by pos {device_us} us; wrapper host time a call "
+          f"{host_us:.2f} us; n_split {out['n_split']}")
     return out
 
 
@@ -857,11 +909,11 @@ def scaled(counts: dict, k: int) -> dict:
 def device_kernels(cfg) -> tuple:
     """Parts of the names of the CUDA kernels of the family's main path
     (profiler): the prefill attention's (``flash_attention_hopper_kernel``
-    in bf16), flash-decode's two, and the scan's (mamba1_scan's chunk and
-    carry kernels all carry ``mamba1_``; ssd_scan's three chunk-parallel
-    passes, its decode step and its sequential kernel ``ssd_``)."""
-    names = ["flash_attention_", "decode_split_kernel",
-             "decode_combine_kernel"]
+    in bf16), flash-decode's one (``DECODE_KERNEL``), and the scan's
+    (mamba1_scan's chunk and carry kernels all carry ``mamba1_``;
+    ssd_scan's three chunk-parallel passes, its decode step and its
+    sequential kernel ``ssd_``)."""
+    names = ["flash_attention_", DECODE_KERNEL]
     if cfg.ssm is not None:
         names.append("mamba1_" if cfg.ssm.kind == "mamba1" else "ssd_")
     return tuple(names)
@@ -870,6 +922,28 @@ def device_kernels(cfg) -> tuple:
 # ---------------------------------------------------------------------------
 # what a switch's downtime could hide
 # ---------------------------------------------------------------------------
+
+def decode_registers(log) -> dict:
+    """``{"<type>,<rows>": [registers, spill store bytes, spill load
+    bytes]}`` of each flash-decode instantiation, from ptxas's report in
+    the build's ``nvcc.log``."""
+    import re
+    out, name = {}, None
+    for line in open(log):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"flash_decode_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                          m.group(1))
+            name = (f"{'bf16' if k.group(1) != 'f' else 'f32'},"
+                    f"{k.group(2)}") if k else None
+        elif name and "spill stores" in line:
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[name] = [regs] + spills
+            name = None
+    return out
+
 
 def smi_clocks() -> str:
     """The card's SM clock and its active clock-event (throttle) reasons."""
@@ -1130,6 +1204,14 @@ def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
             logits, prof = profile_step(lambda: ref.serve(feed)[0],
                                         request_bound_ms(cfg, params, 1),
                                         device_kernels(cfg))
+            # the kernel the step launched must show in the trace: a
+            # renamed kernel would otherwise read as 0 device time
+            want = per_step["flash_decode_attention"]
+            got = prof.get("kernel_calls", {}).get(DECODE_KERNEL, 0)
+            check(not want or (got == want and prof[
+                "kernel_device_ms_by_name"][DECODE_KERNEL] > 0),
+                f"the profiled step shows {got} {DECODE_KERNEL} launches "
+                f"with device time, want {want} ({prof.get('error', '')})")
         else:
             logits, _ = ref.serve(feed)
         ref_logits.append(logits.float().cpu())
@@ -1203,9 +1285,10 @@ def request_bound_ms(cfg, params, tokens: int, extra_flops: int = 0) -> float:
 def profile_step(call, bound_ms, kernel_keys):
     """One request (``call()`` returns its logits) under torch.profiler:
     device busy time (the sum of the kernels' and copies' own device time,
-    counted once each), idle share of the request's wall, the device time
-    and share of the kernels whose names contain one of ``kernel_keys``,
-    and busy time over the request's bound ``bound_ms``
+    counted once each), idle share of the request's wall, the device ops
+    (kernels and copies) and the aten operators it ran, the device time,
+    launches and share of the kernels whose names contain one of
+    ``kernel_keys``, and busy time over the request's bound ``bound_ms``
     (``request_bound_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1234,6 +1317,9 @@ def profile_step(call, bound_ms, kernel_keys):
                           if key in e.key) / 1e3 for key in kernel_keys}
     calls = {key: sum(e.count for e in events if key in e.key)
              for key in kernel_keys}
+    aten = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU
+               and e.key.startswith("aten::"))
     kern = sum(by_kernel.values()) * 1e3
     bound_us = bound_ms * 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -1241,7 +1327,9 @@ def profile_step(call, bound_ms, kernel_keys):
     return logits, {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
+        "device_ops": sum(e.count for e in events), "aten_ops": aten,
         "kernel_device_ms": kern / 1e3, "kernel_device_ms_by_name": by_kernel,
+        "kernel_calls": calls,
         "kernel_device_us_per_launch": {
             key: by_kernel[key] * 1e3 / calls[key]
             for key in kernel_keys if calls[key]},
@@ -1572,7 +1660,9 @@ def main() -> None:
 
     # phase 2: build
     t_build = build.build(force=True)
-    print(f"[build] {build.library_path().name} built in {t_build:.2f} s")
+    print(f"[build] {build.library_path().name} built in {t_build:.2f} s; "
+          f"flash_decode_kernel<type, rows> registers and spill bytes: "
+          f"{decode_registers(build.library_path().parent / 'nvcc.log')}")
 
     # phase 3: kernels
     gclog = GcLog()

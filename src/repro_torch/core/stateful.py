@@ -275,14 +275,26 @@ class StatefulStageRunner:
     def _has_attention(self, units) -> bool:
         return any(_is_attn_unit(self.cfg, u) for u in units)
 
-    def _attend(self, q, kc, vc, pos):
+    def _attend(self, q, kc, vc, valid):
         """One-token attention vs the heads-major cache, routed per
         ``decode_impl``.  Both paths take/return (B, 1, H, hd) and accept
-        a scalar or per-row ``(B,)`` decode position; the cache already
-        holds this token, so ``pos + 1`` entries are valid."""
+        a scalar or per-row ``(B,)`` count of valid entries (the cache
+        already holds this token: ``pos + 1``)."""
         if self.resolved_decode_impl == "kernel":
-            return FD.flash_decode_attention(q, kc, vc, pos=pos + 1)
-        return Lyr.decode_attention(q, kc, vc, pos=pos + 1)
+            return FD.flash_decode_attention(q, kc, vc, pos=valid)
+        return Lyr.decode_attention(q, kc, vc, pos=valid)
+
+    @staticmethod
+    def _step_operands(pos):
+        """What every attention unit of a decode step needs from ``pos``,
+        computed once a step: the valid length ``pos + 1`` and the cache
+        write's index (``_cache_write``)."""
+        if pos.dim() == 0:
+            where = pos.reshape(1).long()
+        else:
+            where = (torch.arange(pos.shape[0], device=pos.device),
+                     pos.long())
+        return pos + 1, where
 
     def _decode_rope(self, pos):
         """One-token rope tables with an explicit batch axis: (1, 1, hd/2)
@@ -295,15 +307,16 @@ class StatefulStageRunner:
         return Lyr.rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)
 
     @staticmethod
-    def _cache_write(cache, val, pos):
+    def _cache_write(cache, val, where):
         """Write a one-token heads-major (B, KH, 1, hd) update at the
         decode position IN PLACE (see the module docstring): one indexed
-        copy for a shared scalar pos, a per-row scatter for ``(B,)``."""
-        if pos.dim() == 0:
-            return cache.index_copy_(2, pos.reshape(1).long(), val)
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, :, pos.long()] = val[:, :, 0]
-        return cache
+        copy for a shared scalar pos (``where`` its (1,) index), a per-row
+        scatter for ``(B,)`` (``where`` the rows and their positions)."""
+        if isinstance(where, tuple):
+            rows, cols = where
+            cache[rows, :, cols] = val[:, :, 0]
+            return cache
+        return cache.index_copy_(2, where, val)
 
     @property
     def num_units(self) -> int:
@@ -316,7 +329,7 @@ class StatefulStageRunner:
         return int(param_bytes(self.params) * frac)
 
     # -- one decoder unit, one token ------------------------------------
-    def _decode_unit(self, params, unit, x, cache, new, pos, rope):
+    def _decode_unit(self, params, unit, x, cache, new, operands, rope):
         cfg = self.cfg
         kind, idx = unit
         if not _is_attn_unit(cfg, unit):
@@ -336,12 +349,13 @@ class StatefulStageRunner:
         cos, sin = rope
         q = Lyr.apply_rope(q, cos, sin)
         k = Lyr.apply_rope(k, cos, sin)
+        valid, where = operands
         kc = self._cache_write(
-            cache[kk], k.transpose(1, 2).to(cache[kk].dtype), pos)
+            cache[kk], k.transpose(1, 2).to(cache[kk].dtype), where)
         vc = self._cache_write(
-            cache[vk], v.transpose(1, 2).to(cache[vk].dtype), pos)
+            cache[vk], v.transpose(1, 2).to(cache[vk].dtype), where)
         new[kk], new[vk] = kc, vc
-        att = self._attend(q, kc, vc, pos)
+        att = self._attend(q, kc, vc, valid)
         x = x + att.reshape(B, 1, -1) @ p["attn"]["wo"]
         h2 = T._apply_norm(cfg, p["ln2"], x)
         return x + Lyr.mlp(p["mlp"], h2, gated=cfg.gated_mlp)
@@ -354,9 +368,11 @@ class StatefulStageRunner:
             new: Dict[str, Any] = {}
             bounds = []
             rope = self._decode_rope(pos) if attends else None
+            operands = self._step_operands(pos) if attends else None
             for unit in units:
                 bounds.append(x)
-                x = self._decode_unit(params, unit, x, cache, new, pos, rope)
+                x = self._decode_unit(params, unit, x, cache, new, operands,
+                                      rope)
             b = torch.stack(bounds) if bounds \
                 else x.new_zeros((0,) + tuple(x.shape))
             return x, new, b

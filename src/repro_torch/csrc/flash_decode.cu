@@ -1,5 +1,5 @@
 // Flash-decode attention for Hopper (sm_90a): one query token per row
-// against a heads-major KV cache, split-K over the cache length.
+// against a heads-major KV cache, in one launch split over the live prefix.
 //
 // Replaces the Pallas TPU kernel `flash_decode_attention`
 // (src/repro/kernels/flash_decode.py, `_decode_kernel`).  It computes the
@@ -9,27 +9,41 @@
 //
 // What bounds it on this card: it reads 2 * B * KH * min(pos, S) * D cache
 // elements once and does ~4 flops per element, far below the card's ~295
-// flops per byte, so it is bound by device-memory bytes.  The Pallas grid
-// walks the cache blocks in order on one core; here B * KH is 2 for the
-// served model, so the cache length is split across blocks instead:
+// flops per byte, so it is bound by device-memory bytes; at the served
+// shapes (1 MB of cache a call for qwen2.5-3b, 15 MB for zamba2-7b) it is
+// bound in practice by the latency of one trip to device memory and of the
+// cross-block merge.  The design follows from that:
 //
-//   pass 1 (decode_split_kernel), grid (B * KH, n_split): each block keeps
-//     the group's G query rows in shared memory, walks its slice of the
-//     valid prefix in tiles of kTileK keys (16-byte loads along D), and
-//     writes f32 partials (m, l, acc[G][D]).  A block whose slice lies
-//     wholly past pos writes m = -inf and nothing else.  Dot products run
-//     one per thread over bank-padded rows with four partial sums, the
-//     softmax bookkeeping a warp per row, the PV update four keys at once.
-//   pass 2 (decode_combine_kernel), grid (B * KH, G): one block per output
-//     row computes the split weights once, then merges the partials in a
-//     fixed order (deterministic), divides by max(l, 1e-30) and writes the
-//     output in the input dtype.
+//   * one grid (B * KH * RG, n_split), fixed by the host from shapes alone
+//     (RG row groups of GT <= 8 query heads each).  Every block reads its
+//     row's valid = min(pos, S) on the device and takes an equal share of
+//     [0, valid) in units of kAlign keys (`slice_of`), so every block has
+//     keys whatever max_seq is, and pos never goes to the host (the call
+//     can be captured in a CUDA graph and replayed with pos changed);
+//   * a block's K and V slice streams into shared memory with 16-byte
+//     `cp.async` copies, kept in the cache's dtype, through a ring of
+//     kStages tiles: the first kStages - 1 tiles are all in flight before
+//     the block waits on the first, and the scores and P.V of a tile run
+//     while the later tiles land.  bf16 widens to f32 in registers;
+//   * inside a tile, L lanes share a key (16 bytes of its row each: L = 16
+//     at D 128 or 112 in bf16), so a warp works on 32 / L keys at a time
+//     and the group's GT query rows sit in registers: G = 1 keeps every
+//     lane busy.  Each key group keeps its own online softmax (m, l, acc);
+//     the groups merge by shuffles, the warps through shared memory, in a
+//     fixed order;
+//   * the merge across blocks is folded into the same launch: each block
+//     writes f32 partials (m, l, acc[GT][D]), fences, and takes a ticket
+//     on its (b, kh, row group) counter; the block with the last ticket
+//     merges all n_split partials in split order, writes the output in the
+//     input dtype and resets the counter to 0.  The slices and every sum's
+//     order depend only on valid and the shapes, so the result is
+//     deterministic (repeat calls bit-equal, a size-1 pos vector equal to
+//     the scalar).  An empty slice writes m = -inf, l = 0, acc = 0: weight
+//     0 in the merge.
 //
-// pos stays on the device: a length-1 (shared) or length-B (per-row) int32
-// buffer read by both passes, so the host never waits on it.  The kernel
-// launches on the stream it is given and allocates nothing; the caller
-// passes the partial buffers.  A simple kernel that is right: wgmma and
-// TMA are left for later work.
+// The kernel launches on the stream it is given and allocates nothing: the
+// caller passes the partials and a zeroed counter buffer that no call
+// running at the same time shares (one per stream, kernels/flash_decode.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,19 +53,27 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileK = 32;
+constexpr int kStages = 4;        // tiles of the cp.async ring
+constexpr int kAlign = 16;        // a slice starts at a multiple of this
 
-template <typename T> struct VecWidth;
-template <> struct VecWidth<float> { static constexpr int N = 4; };
-template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
+// VEC values of T in 16 bytes; TK keys a tile (16 KB of K and V at D 128)
+template <typename T> struct Cfg;
+template <> struct Cfg<float> {
+  static constexpr int VEC = 4;
+  static constexpr int TK = 16;
+};
+template <> struct Cfg<__nv_bfloat16> {
+  static constexpr int VEC = 8;
+  static constexpr int TK = 32;
+};
 
-// 16 bytes of T from global memory -> f32 values in dst.
-__device__ __forceinline__ void load16(const float* src, float* dst) {
+// 16 bytes of T (global or shared memory) -> f32 registers
+__device__ __forceinline__ void widen(const float* src, float* dst) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
+__device__ __forceinline__ void widen(const __nv_bfloat16* src, float* dst) {
   const uint4 x = *reinterpret_cast<const uint4*>(src);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
@@ -67,27 +89,18 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16(v);
 }
 
-// Copies `n` rows of D values (T) into f32 shared memory rows of
-// `stride` floats, 16 bytes a thread.
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* src, float* dst, int n,
-                                          int D, int stride) {
-  constexpr int VN = VecWidth<T>::N;
-  const int per_row = D / VN;
-  float tmp[VN];
-  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i % per_row) * VN;
-    load16(src + (size_t)r * D + c, tmp);
-#pragma unroll
-    for (int e = 0; e < VN; ++e) dst[r * stride + c + e] = tmp[e];
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ int valid_len(const int* pos, int per_row, int b,
-                                         int S) {
-  const int p = pos[per_row ? b : 0];
-  return p < S ? p : S;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -102,190 +115,331 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ pos, int per_row,
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int KH, int G, int S, int D, int chunk,
-    int n_split, float scale) {
-  extern __shared__ float smem[];
-  const int bh = blockIdx.x;               // b * KH + kh
-  const int split = blockIdx.y;
-  const int valid = valid_len(pos, per_row, bh / KH, S);
-  const int k0 = split * chunk;
-  const int k1 = min(k0 + chunk, valid);
-  const size_t prow = ((size_t)bh * n_split + split) * G;
-  if (k0 >= k1) {                          // slice wholly past pos
-    for (int g = threadIdx.x; g < G; g += kThreads) {
-      part_m[prow + g] = -CUDART_INF_F;
-      part_l[prow + g] = 0.f;
-    }
-    return;
-  }
-  // rows of q and K are padded to D + 1 floats, so the threads of a warp,
-  // each on its own key, read distinct banks in the dot products
-  const int DP = D + 1;
-  float* qs = smem;                        // [G][DP]
-  float* ks = qs + G * DP;                 // [kTileK][DP]
-  float* vs = ks + kTileK * DP;            // [kTileK][D]
-  float* acc = vs + kTileK * D;            // [G][D]
-  float* sc = acc + G * D;                 // [G][kTileK] scores, then p
-  float* ms = sc + G * kTileK;             // [G] running max
-  float* ls = ms + G;                      // [G] running sum
-  float* cs = ls + G;                      // [G] this tile's correction
-
-  // q (B, 1, H, D): the group's G heads are contiguous at bh * G * D
-  load_rows(q + (size_t)bh * G * D, qs, G, D, DP);
-  for (int i = threadIdx.x; i < G * D; i += kThreads) acc[i] = 0.f;
-  for (int g = threadIdx.x; g < G; g += kThreads) {
-    ms[g] = -CUDART_INF_F;
-    ls[g] = 0.f;
-  }
-  const T* kb = k + (size_t)bh * S * D;
-  const T* vb = v + (size_t)bh * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int t0 = k0; t0 < k1; t0 += kTileK) {
-    const int n = min(kTileK, k1 - t0);
-    __syncthreads();                       // previous tile fully consumed
-    load_rows(kb + (size_t)t0 * D, ks, n, D, DP);
-    load_rows(vb + (size_t)t0 * D, vs, n, D, D);
-    __syncthreads();
-    // scores: one (row, key) dot product per thread, four partial sums
-    for (int idx = threadIdx.x; idx < G * n; idx += kThreads) {
-      const float* qr = qs + (idx / n) * DP;
-      const float* kr = ks + (idx % n) * DP;
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      for (int d = 0; d < D; d += 4) {     // D is a multiple of 4
-        s0 += qr[d] * kr[d];
-        s1 += qr[d + 1] * kr[d + 1];
-        s2 += qr[d + 2] * kr[d + 2];
-        s3 += qr[d + 3] * kr[d + 3];
-      }
-      sc[(idx / n) * kTileK + idx % n] = ((s0 + s1) + (s2 + s3)) * scale;
-    }
-    __syncthreads();
-    // online-softmax bookkeeping: one warp per row, one lane per key
-    for (int g = warp; g < G; g += kWarps) {
-      const float m_old = ms[g];
-      const float s = lane < n ? sc[g * kTileK + lane] : -CUDART_INF_F;
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      if (lane < n) sc[g * kTileK + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        ls[g] = ls[g] * corr + sum;
-        ms[g] = m_new;
-        cs[g] = corr;
-      }
-    }
-    __syncthreads();
-    // acc = acc * corr + p @ V, four keys in flight per element
-    for (int i = threadIdx.x; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i % D;
-      const float* pr = sc + g * kTileK;
-      float a0 = acc[i] * cs[g], a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      int j = 0;
-      for (; j + 3 < n; j += 4) {
-        a0 += pr[j] * vs[j * D + d];
-        a1 += pr[j + 1] * vs[(j + 1) * D + d];
-        a2 += pr[j + 2] * vs[(j + 2) * D + d];
-        a3 += pr[j + 3] * vs[(j + 3) * D + d];
-      }
-      for (; j < n; ++j) a0 += pr[j] * vs[j * D + d];
-      acc[i] = (a0 + a1) + (a2 + a3);
-    }
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < G; g += kThreads) {
-    part_m[prow + g] = ms[g];
-    part_l[prow + g] = ls[g];
-  }
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    part_acc[prow * D + i] = acc[i];
-  }
+// weight of a partial with max m against the merged max mx (0 for an
+// empty partial, whose m is -inf)
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -CUDART_INF_F ? 0.f : exp2f(m - mx);
 }
 
-// grid (B * KH, G): one block per output row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, const int* __restrict__ pos,
-    int per_row, T* __restrict__ out, int KH, int G, int S, int D,
-    int n_split) {
-  extern __shared__ float w[];             // [n_split] merge weights
-  __shared__ float total;
-  const int bh = blockIdx.x;
-  const int g = blockIdx.y;
-  const int valid = valid_len(pos, per_row, bh / KH, S);
-  T* ob = out + ((size_t)bh * G + g) * D;  // out (B, 1, H, D), like q
-  if (valid <= 0) {                        // nothing to attend to
-    for (int d = threadIdx.x; d < D; d += kThreads) store(ob + d, 0.f);
-    return;
-  }
-  const size_t r0 = (size_t)bh * n_split * G + g;   // split s: r0 + s * G
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float m = -CUDART_INF_F;
-    for (int s = lane; s < n_split; s += 32) m = fmaxf(m, part_m[r0 + s * G]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int s = lane; s < n_split; s += 32) {
-      const float ms = part_m[r0 + s * G];
-      // an empty slice wrote no partials: weight 0, skipped below
-      const float ws = ms == -CUDART_INF_F ? 0.f : expf(ms - m);
-      w[s] = ws;
-      if (ws != 0.f) l += part_l[r0 + s * G] * ws;
+// Keys [k0, k1) of split `split`: the valid prefix in units of kAlign keys,
+// split i taking units [i * n / n_split, (i + 1) * n / n_split).
+// kernels/flash_decode.py:slice_bounds mirrors it.
+__device__ __forceinline__ void slice_of(int valid, int split, int n_split,
+                                         int* k0, int* k1) {
+  const int units = (valid + kAlign - 1) / kAlign;
+  const int u0 = (int)((long long)split * units / n_split);
+  const int u1 = (int)((long long)(split + 1) * units / n_split);
+  *k0 = u0 * kAlign;
+  *k1 = min(u1 * kAlign, valid);
+}
+
+// grid (B * KH * RG, n_split), kThreads threads.  Dynamic shared memory:
+// the ring (kStages tiles of K and V), reused after the tiles as the
+// warps' accumulators [kWarps][GT][D] and the merge weights [n_split][GT].
+template <typename T, int GT>
+__global__ void __launch_bounds__(kThreads) flash_decode_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ pos, int per_row,
+    T* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_m, float* __restrict__ part_l,
+    int* __restrict__ counters, int KH, int G, int RG, int S, int D,
+    int n_split, float scale_log2) {
+  constexpr int VEC = Cfg<T>::VEC;
+  constexpr int TK = Cfg<T>::TK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float s_m[kWarps][GT], s_l[kWarps][GT], s_tot[GT];
+  __shared__ int s_last;
+
+  const int bhr = blockIdx.x;              // (b * KH + kh) * RG + rg
+  const int split = blockIdx.y;
+  const int bh = bhr / RG;
+  const int g0 = (bhr % RG) * GT;          // first query head of the tile
+  int valid = pos[per_row ? bh / KH : 0];
+  valid = valid < 0 ? 0 : (valid < S ? valid : S);
+  int k0, k1;
+  slice_of(valid, split, n_split, &k0, &k1);
+
+  const int nvec = D / VEC;                // 16-byte columns of a row
+  int L = 1;                               // lanes a key: pow2 >= nvec
+  while (L < nvec) L <<= 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = lane & (L - 1);            // this lane's column
+  const bool col = c < nvec;
+  const int per_warp = 32 / L;             // keys a warp takes at once
+  const int n_slots = kWarps * per_warp;
+  const size_t prow = ((size_t)bhr * n_split + split) * GT;
+  float* xacc = reinterpret_cast<float*>(smem_raw);   // after the tiles
+
+  if (k0 < k1) {
+    float qr[GT][VEC];
+    // q (B, 1, H, D): head kh * G + g of row b sits at (bh * G + g) * D
+    const T* qb = q + (size_t)bh * G * D;
+#pragma unroll
+    for (int i = 0; i < GT; ++i) {
+      if (col && g0 + i < G) {
+        widen(qb + (size_t)(g0 + i) * D + c * VEC, qr[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qr[i][e] = 0.f;
+      }
     }
-    l = warp_sum(l);
-    if (lane == 0) total = l;
+    float m[GT], l[GT], acc[GT][VEC];
+#pragma unroll
+    for (int i = 0; i < GT; ++i) {
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+    }
+
+    T* ks = reinterpret_cast<T*>(smem_raw);           // [kStages][TK][D]
+    T* vs = ks + (size_t)kStages * TK * D;            // [kStages][TK][D]
+    const T* kb = k + ((size_t)bh * S + k0) * D;
+    const T* vb = v + ((size_t)bh * S + k0) * D;
+    const int len = k1 - k0;
+    const int n_tiles = (len + TK - 1) / TK;
+    // a tile's rows are contiguous in the cache and in the ring alike
+    auto issue = [&](int t) {
+      const int chunks = min(TK, len - t * TK) * nvec;
+      T* kd = ks + (size_t)(t % kStages) * TK * D;
+      T* vd = vs + (size_t)(t % kStages) * TK * D;
+      const T* kg = kb + (size_t)t * TK * D;
+      const T* vg = vb + (size_t)t * TK * D;
+      for (int i = threadIdx.x; i < 2 * chunks; i += kThreads) {
+        if (i < chunks) {
+          cp_async16(kd + i * VEC, kg + (size_t)i * VEC);
+        } else {
+          cp_async16(vd + (i - chunks) * VEC,
+                     vg + (size_t)(i - chunks) * VEC);
+        }
+      }
+    };
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles) issue(t);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();      // tile t has landed
+      __syncthreads();
+      const int n = min(TK, len - t * TK);
+      const T* kt = ks + (size_t)(t % kStages) * TK * D;
+      const T* vt = vs + (size_t)(t % kStages) * TK * D;
+      // j0 is uniform across the warp, so every lane takes the shuffles
+      for (int j0 = warp * per_warp; j0 < n; j0 += n_slots) {
+        const int j = j0 + lane / L;
+        const bool live = j < n;
+        float kx[VEC], vx[VEC];
+        if (live && col) {
+          widen(kt + (size_t)j * D + c * VEC, kx);
+          widen(vt + (size_t)j * D + c * VEC, vx);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kx[e] = vx[e] = 0.f;
+        }
+        float s[GT];
+#pragma unroll
+        for (int i = 0; i < GT; ++i) {
+          float a = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) a = fmaf(qr[i][e], kx[e], a);
+          s[i] = a;
+        }
+        for (int o = L >> 1; o > 0; o >>= 1) {
+#pragma unroll
+          for (int i = 0; i < GT; ++i)
+            s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+        }
+        if (live) {
+#pragma unroll
+          for (int i = 0; i < GT; ++i) {
+            const float sc = s[i] * scale_log2;
+            const float mn = fmaxf(m[i], sc);
+            const float cr = exp2f(m[i] - mn);   // 0 while m is -inf
+            const float p = exp2f(sc - mn);
+            l[i] = l[i] * cr + p;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[i][e] = acc[i][e] * cr + p * vx[e];
+            m[i] = mn;
+          }
+        }
+      }
+      __syncthreads();                    // the slot may be refilled
+    }
+    cp_async_wait<0>();
+
+    // the warp's key groups, merged by shuffles (lanes o apart share a
+    // column of different keys)
+    for (int o = L; o < 32; o <<= 1) {
+#pragma unroll
+      for (int i = 0; i < GT; ++i) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[i], o);
+        const float mn = fmaxf(m[i], mo);
+        const float wa = weight(m[i], mn);
+        const float wb = weight(mo, mn);
+        l[i] = l[i] * wa + lo * wb;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[i][e], o);
+          acc[i][e] = acc[i][e] * wa + ao * wb;
+        }
+        m[i] = mn;
+      }
+    }
+    // the warps, merged through shared memory in warp order
+    if (lane < L && col) {
+#pragma unroll
+      for (int i = 0; i < GT; ++i) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          xacc[((size_t)warp * GT + i) * D + c * VEC + e] = acc[i][e];
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < GT; ++i) {
+        s_m[warp][i] = m[i];
+        s_l[warp][i] = l[i];
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < GT * D; idx += kThreads) {
+      const int i = idx / D;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][i]);
+      float a = 0.f, ls = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float ww = weight(s_m[w][i], mx);
+        a += ww * xacc[((size_t)w * GT + i) * D + idx % D];
+        ls += ww * s_l[w][i];
+      }
+      part_acc[prow * D + idx] = a;
+      if (idx % D == 0) {
+        part_m[prow + i] = mx;
+        part_l[prow + i] = ls;
+      }
+    }
+  } else {                                 // an empty slice: weight 0
+    for (int idx = threadIdx.x; idx < GT * D; idx += kThreads)
+      part_acc[prow * D + idx] = 0.f;
+    if (threadIdx.x < GT) {
+      part_m[prow + threadIdx.x] = -CUDART_INF_F;
+      part_l[prow + threadIdx.x] = 0.f;
+    }
+  }
+
+  // every block's partials are visible before its ticket; the last
+  // ticket merges
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(counters + bhr, 1) == n_split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  const size_t base = (size_t)bhr * n_split * GT;   // split s, row i:
+  float* wsm = xacc + (size_t)kWarps * GT * D;       //   base + s * GT + i
+  for (int i = warp; i < GT; i += kWarps) {
+    float mx = -CUDART_INF_F;
+    for (int s = lane; s < n_split; s += 32)
+      mx = fmaxf(mx, __ldcg(part_m + base + (size_t)s * GT + i));
+    mx = warp_max(mx);
+    float ls = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const float ws = weight(__ldcg(part_m + base + (size_t)s * GT + i), mx);
+      wsm[s * GT + i] = ws;
+      ls += ws * __ldcg(part_l + base + (size_t)s * GT + i);
+    }
+    ls = warp_sum(ls);
+    if (lane == 0) s_tot[i] = ls;
   }
   __syncthreads();
-  const float denom = fmaxf(total, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float a = 0.f;
-#pragma unroll 4
+  const int d4n = D / 4;
+  T* ob = out + ((size_t)bh * G + g0) * D;           // out (B, 1, H, D)
+  for (int idx = threadIdx.x; idx < GT * d4n; idx += kThreads) {
+    const int i = idx / d4n;
+    const int d = (idx % d4n) * 4;
+    if (g0 + i >= G) continue;
+    const float* pa = part_acc + (base + i) * D + d;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
     for (int s = 0; s < n_split; ++s) {
-      const float ws = w[s];
-      if (ws != 0.f) a += part_acc[(r0 + (size_t)s * G) * D + d] * ws;
+      const float ws = wsm[s * GT + i];
+      const float4 x =
+          __ldcg(reinterpret_cast<const float4*>(pa + (size_t)s * GT * D));
+      a.x += ws * x.x;
+      a.y += ws * x.y;
+      a.z += ws * x.z;
+      a.w += ws * x.w;
     }
-    store(ob + d, a / denom);
+    const float den = fmaxf(s_tot[i], 1e-30f);
+    T* o = ob + (size_t)i * D + d;
+    store(o, a.x / den);
+    store(o + 1, a.y / den);
+    store(o + 2, a.z / den);
+    store(o + 3, a.w / den);
   }
+  if (threadIdx.x == 0) counters[bhr] = 0;  // ready for the next call
+}
+
+template <typename T, int GT>
+int launch_gt(const void* q, const void* k, const void* v, const int* pos,
+              int per_row, void* out, float* part_acc, float* part_m,
+              float* part_l, int* counters, int B, int KH, int G, int RG,
+              int S, int D, int n_split, float scale_log2,
+              cudaStream_t st) {
+  constexpr int TK = Cfg<T>::TK;
+  const size_t ring = (size_t)2 * kStages * TK * D * sizeof(T);
+  const size_t merge = sizeof(float) * ((size_t)kWarps * GT * D +
+                                        (size_t)n_split * GT);
+  const size_t smem = ring > merge ? ring : merge;
+  // the opt-in above 48 KB, once a device and instantiation
+  static int allowed[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || (int)smem > allowed[dev])) {
+    err = cudaFuncSetAttribute(flash_decode_kernel<T, GT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = (int)smem;
+  }
+  const dim3 grid(B * KH * RG, n_split);
+  flash_decode_kernel<T, GT><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, per_row, static_cast<T*>(out), part_acc,
+      part_m, part_l, counters, KH, G, RG, S, D, n_split, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           int per_row, void* out, float* part_m, float* part_l,
-           float* part_acc, int B, int H, int KH, int S, int D, int chunk,
-           int n_split, float scale, void* stream) {
+           int per_row, void* out, float* part_acc, float* part_m,
+           float* part_l, int* counters, int B, int H, int KH, int GT,
+           int S, int D, int n_split, float scale_log2, void* stream) {
   const int G = H / KH;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * (D + 1) + kTileK * (D + 1) + kTileK * D +
-                       (size_t)G * D + G * kTileK + 3 * G);
+  const int RG = (G + GT - 1) / GT;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(decode_split_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+#define FD_LAUNCH(N)                                                         \
+  return launch_gt<T, N>(q, k, v, pos, per_row, out, part_acc, part_m,      \
+                         part_l, counters, B, KH, G, RG, S, D, n_split,     \
+                         scale_log2, st)
+  switch (GT) {
+    case 1: FD_LAUNCH(1);
+    case 2: FD_LAUNCH(2);
+    case 4: FD_LAUNCH(4);
+    case 8: FD_LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid1(B * KH, n_split);
-  decode_split_kernel<T><<<grid1, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, per_row, part_m, part_l, part_acc, KH, G,
-      S, D, chunk, n_split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid2(B * KH, G);
-  decode_combine_kernel<T><<<grid2, kThreads, sizeof(float) * n_split, st>>>(
-      part_m, part_l, part_acc, pos, per_row, static_cast<T*>(out), KH, G, S,
-      D, n_split);
-  return (int)cudaGetLastError();
+#undef FD_LAUNCH
 }
 
 }  // namespace
@@ -293,24 +447,27 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 extern "C" {
 
 // Returns a cudaError_t (0 on success).  Pointers are device pointers,
-// `stream` a cudaStream_t; shapes were checked by the Python wrapper.
+// `stream` a cudaStream_t; shapes, the row tile GT (1, 2, 4 or 8) and
+// n_split were checked and chosen by the Python wrapper; scale_log2 is
+// log2(e) / sqrt(D).
 int flash_decode_f32(const void* q, const void* k, const void* v,
-                     const int* pos, int per_row, void* out, float* part_m,
-                     float* part_l, float* part_acc, int B, int H, int KH,
-                     int S, int D, int chunk, int n_split, float scale,
-                     void* stream) {
-  return launch<float>(q, k, v, pos, per_row, out, part_m, part_l, part_acc,
-                       B, H, KH, S, D, chunk, n_split, scale, stream);
+                     const int* pos, int per_row, void* out, float* part_acc,
+                     float* part_m, float* part_l, int* counters, int B,
+                     int H, int KH, int GT, int S, int D, int n_split,
+                     float scale_log2, void* stream) {
+  return launch<float>(q, k, v, pos, per_row, out, part_acc, part_m, part_l,
+                       counters, B, H, KH, GT, S, D, n_split, scale_log2,
+                       stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v,
-                      const int* pos, int per_row, void* out, float* part_m,
-                      float* part_l, float* part_acc, int B, int H, int KH,
-                      int S, int D, int chunk, int n_split, float scale,
-                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, pos, per_row, out, part_m, part_l,
-                               part_acc, B, H, KH, S, D, chunk, n_split, scale,
-                               stream);
+                      const int* pos, int per_row, void* out,
+                      float* part_acc, float* part_m, float* part_l,
+                      int* counters, int B, int H, int KH, int GT, int S,
+                      int D, int n_split, float scale_log2, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, pos, per_row, out, part_acc, part_m,
+                               part_l, counters, B, H, KH, GT, S, D, n_split,
+                               scale_log2, stream);
 }
 
 }  // extern "C"

@@ -8,10 +8,15 @@ tensor the wrapper runs the plain PyTorch version below.
 
 What bounds it on an H100: it reads ``2 * B * KH * min(pos, S) * D`` cache
 elements once and does about four flops per element, so it is bound by
-device-memory bytes (``bound_bytes``).  B * KH is 2 for the served model,
-far too few blocks for 132 SMs, so the kernel splits the cache length
-across blocks (``split_plan``) and merges the f32 partials in a second
-pass.  ``pos`` stays on the device: the hot path never waits on the host.
+device-memory bytes (``bound_bytes``).  B * KH is 2 for the served dense
+model, far too few blocks for 132 SMs, so the kernel splits the live
+prefix ``[0, min(pos, S))`` across ``n_split`` blocks a (row, KV head):
+``split_plan`` fixes the grid from the shapes alone, each block finds its
+share on the device (``slice_bounds`` mirrors the arithmetic), and the
+block that finishes last merges the f32 partials in the same launch.
+``pos`` stays on the device: the hot path never waits on the host, and a
+call can be captured in a CUDA graph and replayed with ``pos`` changed in
+place.
 
 Contract (the Pallas kernel's, held by both versions):
 
@@ -24,30 +29,47 @@ Contract (the Pallas kernel's, held by both versions):
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-TILE_K = 32                 # keys per shared-memory tile (kTileK in the .cu)
-TARGET_BLOCKS = 264         # two blocks per SM of a 132-SM H100
-MIN_SPLIT_KEYS = 64         # a split smaller than this costs more in
-                            # partials than it saves in parallelism
-_SMEM_LIMIT = 232_448       # dynamic shared memory a block may use (bytes)
+ALIGN_K = 16                # a slice starts at a multiple of this many
+                            # keys (kAlign in the .cu)
+TARGET_BLOCKS = 128         # blocks a call aims at: one wave of 132 SMs
+MAX_ROW_TILE = 8            # query heads a block (GT in the .cu)
 
 
-def split_plan(B: int, KH: int, S: int) -> Tuple[int, int]:
-    """``(n_split, chunk)``: how the cache length S is cut across blocks.
+def row_tile(G: int) -> Tuple[int, int]:
+    """``(GT, RG)``: a block holds GT query heads of a GQA group in
+    registers (the power of two >= G, at most ``MAX_ROW_TILE``; rows past
+    G are padding), and a group of G heads takes RG row groups."""
+    gt = 1
+    while gt < min(G, MAX_ROW_TILE):
+        gt *= 2
+    return gt, -(-G // gt)
 
-    Aims at ``TARGET_BLOCKS`` blocks over the grid ``(B * KH, n_split)``,
-    never with fewer than ``MIN_SPLIT_KEYS`` keys a split; ``chunk`` is a
-    multiple of ``TILE_K`` and ``n_split * chunk >= S``."""
-    want = max(1, -(-TARGET_BLOCKS // max(B * KH, 1)))
-    most = max(1, -(-S // MIN_SPLIT_KEYS))
-    n = min(want, most)
-    chunk = -(-S // n)
-    chunk = -(-chunk // TILE_K) * TILE_K
-    return -(-S // chunk), chunk
+
+def split_plan(B: int, KH: int, S: int, row_groups: int = 1) -> int:
+    """``n_split``: blocks a (row, KV head, row group) over the grid
+    ``(B * KH * row_groups, n_split)``, from the shapes alone: about
+    ``TARGET_BLOCKS`` blocks in all, and no more splits than ``ALIGN_K``-key
+    units in the cache (a block past them would always be empty)."""
+    rows = max(B * KH * row_groups, 1)
+    want = max(1, TARGET_BLOCKS // rows)
+    return min(want, max(1, -(-S // ALIGN_K)))
+
+
+def slice_bounds(valid: int, split: int, n_split: int) -> Tuple[int, int]:
+    """Keys ``[k0, k1)`` of split ``split`` when ``valid`` keys are live:
+    the kernel's ``slice_of``.  The prefix is cut in ``ALIGN_K``-key units
+    and split i takes units ``[i * n // n_split, (i + 1) * n // n_split)``:
+    the splits cover ``[0, valid)`` once, differ by at most one unit, and
+    ``k0 >= k1`` marks an empty split."""
+    units = -(-valid // ALIGN_K)
+    u0 = split * units // n_split
+    u1 = (split + 1) * units // n_split
+    return u0 * ALIGN_K, min(u1 * ALIGN_K, valid)
 
 
 def _scale(D: int) -> float:
@@ -55,10 +77,9 @@ def _scale(D: int) -> float:
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
-def _shared_bytes(G: int, D: int) -> int:
-    """Dynamic shared memory of the split pass (rows of q and K padded)."""
-    return 4 * (G * (D + 1) + TILE_K * (D + 1) + TILE_K * D + G * D
-                + G * TILE_K + 3 * G)
+def _scale_log2(D: int) -> float:
+    """log2(e)/sqrt(D): the kernel's scores are in base 2 (``exp2f``)."""
+    return float(np.float32(math.log2(math.e) / math.sqrt(D)))
 
 
 def bound_bytes(q: torch.Tensor, k_cache: torch.Tensor, pos) -> int:
@@ -125,22 +146,22 @@ def _check(q, k_cache, v_cache):
 
 def _check_launchable(q, k_cache, v_cache) -> None:
     """What the kernel itself needs beyond ``_check``: 16-byte loads along
-    D, contiguous 16-byte-aligned operands, and shared memory for the
-    group's rows."""
+    D, at most 32 of them a row (one a lane of a warp), and contiguous
+    16-byte-aligned operands.  Its shared memory (a ring of four tiles of
+    K and V, at most 128 KB at that reach) does not grow with G."""
     D = q.shape[3]
-    G = q.shape[2] // k_cache.shape[1]
     vec = 16 // q.element_size()
     if D % vec:
         raise ValueError(f"head_dim {D} is not a multiple of {vec} "
                          f"(16-byte loads)")
+    if D // vec > 32:
+        raise ValueError(f"head_dim {D} needs {D // vec} 16-byte loads a "
+                         f"row; a key's row takes at most 32 (one a lane)")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if _shared_bytes(G, D) > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D} needs {_shared_bytes(G, D)} bytes "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
 
 
 def _pos_buffer(pos, B: int, device) -> Tuple[torch.Tensor, int]:
@@ -160,13 +181,35 @@ def _pos_buffer(pos, B: int, device) -> Tuple[torch.Tensor, int]:
     return buf, int(buf.numel() > 1)
 
 
+# (device index, stream handle) -> int32 ticket counters, zero at rest: a
+# call's last block resets its own, so calls in one stream's order share a
+# buffer, and calls that can run at the same time (other streams) do not.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counter_buffer(device, stream, n: int) -> torch.Tensor:
+    """The stream's zeroed ticket counters, at least ``n`` of them.  They
+    are made outside a CUDA graph's capture (the zeroing would otherwise
+    happen only at replay): call once on a stream before capturing on it."""
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode_attention: call it once on this "
+                               "stream before capturing a CUDA graph (its "
+                               "ticket counters are zeroed outside capture)")
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 def flash_decode_attention(q, k_cache, v_cache, *, pos):
     """q: (B, 1, H, D); k/v_cache HEADS-MAJOR (B, KH, S, D); pos: count of
     valid entries, scalar or ``(B,)``.  Returns (B, 1, H, D).
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel (both passes, counted once in ``flash_decode_attention.launches``)
-    on the current stream, or raises: there is no fallback."""
+    kernel (one launch, counted in ``flash_decode_attention.launches``) on
+    the current stream, or raises: there is no fallback."""
     _check(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_cache, v_cache, pos=pos)
@@ -177,26 +220,27 @@ def flash_decode_attention(q, k_cache, v_cache, *, pos):
     _check_launchable(q, k_cache, v_cache)
     B, _, H, D = q.shape
     KH, S = k_cache.shape[1], k_cache.shape[2]
-    G = H // KH
+    GT, RG = row_tile(H // KH)
     from repro_torch.kernels import build
     lib = build.load()
     pos_buf, per_row = _pos_buffer(pos, B, q.device)
-    n_split, chunk = split_plan(B, KH, S)
-    # one f32 scratch for the split partials: m [rows], l [rows],
-    # acc [rows, D]
-    rows = B * KH * n_split * G
+    n_split = split_plan(B, KH, S, RG)
+    stream = torch.cuda.current_stream(q.device)
+    counters = _counter_buffer(q.device, stream, B * KH * RG)
+    # one f32 scratch for the partials: acc [rows, D] first (16-byte
+    # aligned for the merge's loads), then m [rows], l [rows]
+    rows = B * KH * RG * n_split * GT
     part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
-    part_m = part.data_ptr()
-    part_l, part_acc = part_m + 4 * rows, part_m + 8 * rows
+    part_acc = part.data_ptr()
+    part_m = part_acc + 4 * rows * D
+    part_l = part_m + 4 * rows
     out = torch.empty_like(q)
     fn = lib.flash_decode_bf16 if q.dtype == torch.bfloat16 \
         else lib.flash_decode_f32
-    scale = _scale(D)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             pos_buf.data_ptr(), per_row, out.data_ptr(), part_m, part_l,
-             part_acc, B, H, KH, S, D, chunk,
-             n_split, scale, stream)
+             pos_buf.data_ptr(), per_row, out.data_ptr(), part_acc, part_m,
+             part_l, counters.data_ptr(), B, H, KH, GT, S, D, n_split,
+             _scale_log2(D), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"cudaError_t {err}")

@@ -79,6 +79,88 @@ def test_kernel_per_row_zero_and_size1(cuda):
                                   .transpose(2, 3), v, pos=rows)
 
 
+# the served decode shapes: qwen2.5-3b (16 / 2 heads of 128) and zamba2-7b's
+# shared attention (32 / 32 heads of 112), max_seq 2048
+FD_FULL = [(16, 2, 128), (32, 32, 112)]
+FD_SWEEP = (1, 15, 16, 17, 1025, 2047, 2048, 3000)
+
+
+def _fd_inputs(cuda, B, H, KH, D, dtype, seed, S=2048):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(B, 1, H, D, generator=g, device=cuda, dtype=dtype),
+            torch.randn(B, KH, S, D, generator=g, device=cuda, dtype=dtype),
+            torch.randn(B, KH, S, D, generator=g, device=cuda, dtype=dtype))
+
+
+def _fd_hold(out, want):
+    """f32 within 1e-4; bf16 within 1% of max|plain| (one rounding step,
+    2**-7 of a value, at most)."""
+    assert out.shape == want.shape and out.dtype == want.dtype
+    tol = 1e-2 * want.float().abs().max().item() \
+        if out.dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("H,KH,D", FD_FULL)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_full_width_pos_sweep(cuda, H, KH, D, dtype):
+    """Every pos from one live key to past max_seq (clamped): the slices
+    follow the live prefix, empty ones carry no weight."""
+    q, k, v = _fd_inputs(cuda, 1, H, KH, D, dtype, seed=5)
+    for pos in FD_SWEEP:
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+
+
+@pytest.mark.parametrize("H,KH,D", FD_FULL)
+def test_kernel_full_width_ragged_pos_and_repeat(cuda, H, KH, D):
+    """Per-row pos at full width, a dead row among them (exact zeros), and
+    two calls on the same inputs bit-equal (the merge's order is fixed)."""
+    q, k, v = _fd_inputs(cuda, 4, H, KH, D, torch.bfloat16, seed=6)
+    rows = torch.tensor([1025, 0, 17, 3000], dtype=torch.int32, device=cuda)
+    out = FD.flash_decode_attention(q, k, v, pos=rows)
+    _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=rows))
+    assert torch.count_nonzero(out[1]) == 0
+    again = FD.flash_decode_attention(q, k, v, pos=rows)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("H,KH,D", FD_FULL)
+def test_kernel_consecutive_calls_reset_their_counters(cuda, H, KH, D):
+    """64 calls in a row with changing pos, each held to the plain version:
+    a ticket counter left non-zero would merge early or never."""
+    q, k, v = _fd_inputs(cuda, 1, H, KH, D, torch.bfloat16, seed=7)
+    g = torch.Generator().manual_seed(8)
+    for i in range(64):
+        pos = int(torch.randint(0, 2100, (1,), generator=g)) if i % 4 \
+            else 1024 + i
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+
+
+def test_kernel_replays_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph, replayed after pos is changed in
+    place: the kernel reads pos on the device each replay."""
+    q, k, v = _fd_inputs(cuda, 1, 16, 2, 128, torch.bfloat16, seed=9)
+    pos_t = torch.tensor(1025, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):              # warm up where it captures
+        FD.flash_decode_attention(q, k, v, pos=pos_t)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+    for pos in (1025, 1, 2048, 300, 0, 1040):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos))
+
+
 def test_kernel_route_matches_reference_route(cuda):
     cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
                               num_layers=3, num_kv_heads=2)

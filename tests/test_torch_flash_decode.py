@@ -5,6 +5,12 @@ plain version in tests/test_torch_cuda.py and chip_smoke.py."""
 import numpy as np
 import pytest
 
+try:
+    import hypothesis
+    import hypothesis.strategies as st
+except ImportError:
+    from _hypothesis_compat import hypothesis, st
+
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
@@ -129,6 +135,9 @@ def test_kernel_layout_refusals(case):
         q = torch.zeros(1, 1, 16, 12, dtype=torch.bfloat16)
         k = v = torch.zeros(1, 2, 64, 12, dtype=torch.bfloat16)
     elif case == "shared_mem":
+        # 512 heads of 256 f32 values outgrew the first kernel's shared
+        # memory; the kernel's shared memory no longer grows with G, and a
+        # row of 64 16-byte loads exceeds a warp's 32 lanes
         q = torch.zeros(1, 1, 512, 256)
         k = v = torch.zeros(1, 1, 64, 256)
     with pytest.raises(ValueError):
@@ -150,16 +159,62 @@ def test_pos_buffer_folds_and_refuses():
 @pytest.mark.parametrize("B,KH,S", [(1, 2, 2048), (1, 2, 64), (4, 8, 100),
                                     (1, 1, 1), (128, 2, 32768), (2, 2, 48)])
 def test_split_plan_covers_the_cache(B, KH, S):
-    n, chunk = FD.split_plan(B, KH, S)
-    assert n >= 1 and chunk % FD.TILE_K == 0
-    assert n * chunk >= S > (n - 1) * chunk          # every split has keys
-    assert chunk >= min(FD.MIN_SPLIT_KEYS, S) or n == 1
-    assert B * KH * (n - 1) < FD.TARGET_BLOCKS       # no more than needed
+    n = FD.split_plan(B, KH, S)
+    assert n >= 1
+    assert (n - 1) * FD.ALIGN_K < S              # no split always empty
+    assert B * KH * n <= max(FD.TARGET_BLOCKS, B * KH)   # one wave at most
+    assert FD.split_plan(B, KH, S, row_groups=2) <= n
 
 
 def test_split_plan_fills_the_card_at_the_served_shape():
-    n, chunk = FD.split_plan(1, 2, 2048)             # qwen2.5-3b, max_seq 2048
-    assert (n, chunk) == (32, 64)
+    # qwen2.5-3b (B 1, 2 KV heads) and zamba2-7b (32 KV heads), max_seq 2048:
+    # one block a split and KV head, ~one wave over the H100's 132 SMs
+    assert FD.split_plan(1, 2, 2048) == 64
+    assert FD.split_plan(1, 32, 2048) == 4
+    for KH in (2, 32):
+        n = FD.split_plan(1, KH, 2048)
+        # at the served pos every block has keys: 1025 live keys
+        assert all(k1 > k0 for k0, k1 in
+                   (FD.slice_bounds(1025, i, n) for i in range(n)))
+
+
+@pytest.mark.parametrize("G,want", [(1, (1, 1)), (2, (2, 1)), (3, (4, 1)),
+                                    (8, (8, 1)), (12, (8, 2)), (32, (8, 4))])
+def test_row_tile(G, want):
+    assert FD.row_tile(G) == want
+
+
+def _plans():
+    """Every n_split the plan gives for some grid, and a few beyond."""
+    return sorted({FD.split_plan(B, KH, S) for B in (1, 2, 4)
+                   for KH in (1, 2, 8, 32) for S in (1, 17, 64, 100, 2048)}
+                  | {1, 3, 7, FD.TARGET_BLOCKS})
+
+
+_PLANS = _plans()
+
+
+@hypothesis.given(st.integers(1, 4096), st.integers(0, len(_PLANS) - 1),
+                  st.integers(0, 4101))
+@hypothesis.settings(max_examples=200, deadline=None)
+def test_slice_bounds_cover_the_live_prefix_once(S, plan, draw):
+    """The device's slice arithmetic (mirrored): for valid in [0, S + 5]
+    clamped to S and every planned n_split, each live key lies in exactly
+    one split, no slice reaches past valid, and the shares differ by at
+    most one ``ALIGN_K``-key unit."""
+    n_split = _PLANS[plan]
+    valid = min(draw % (S + 6), S)
+    covered = np.zeros(valid, dtype=np.int64)
+    units = []
+    for i in range(n_split):
+        k0, k1 = FD.slice_bounds(valid, i, n_split)
+        assert k0 % FD.ALIGN_K == 0 and k0 >= 0
+        if k1 > k0:
+            assert k1 <= valid
+            covered[k0:k1] += 1
+        units.append(max(0, -(-(k1 - k0) // FD.ALIGN_K)))
+    assert (covered == 1).all()
+    assert max(units) - min(units) <= 1
 
 
 def test_bound_bytes_counts_the_valid_prefix():
