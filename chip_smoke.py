@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. device    — a CUDA device is present; prints nvidia-smi's name and power
                limit line.
 2. build     — builds the hand-written kernels from ``src/repro_torch/csrc``
-               (one nvcc per source, all started together).
+               (one nvcc per source, all started together); prints each
+               flash_decode_kernel instantiation's registers and spills.
 3. kernel    — holds each kernel against its plain PyTorch version on the
                card.  flash_decode: the reference test grid, the full-width
                decode shapes (qwen2.5-3b's and zamba2-7b's D 112), per-row
@@ -30,7 +31,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                take (the largest of bytes over its data-sheet memory rate,
                operations over its data-sheet rate for their type and, for
                mamba1_scan, exponentials over the special-function unit's
-               rate), and mamba1_scan's device time a launch by kernel.
+               rate), mamba1_scan's device time a launch by kernel, and
+               flash_decode's device time a call at pos 64, 1024 and 2048
+               (torch.profiler; one launch a call, no other device work)
+               and its wrapper's host time a call.
 4. slice     — for each of full-width qwen2.5-3b (36 layers),
                falcon-mamba-7b (64 mamba1 layers) and zamba2-7b (81 mamba2
                layers, 13 shared-attention applications), in bf16 with
@@ -39,10 +43,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                every scan, the prefill and the recompute arm on the
                kernels, repartitions live through 1/2 -> 1/4 -> 1/2 -> 3/4
                of the depth under switch_b2, switch_a and pause_resume,
-               and checks every kernel's launches per decode step, per
-               prefill forward and per recompute hand-off, the paper's
-               downtime ordering, finite logits, and that an unswitched
-               session fed the same tokens gives the same logits.  Each
+               and checks every kernel's launches per decode step (the
+               profiled step must show flash_decode_kernel's launches with
+               device time), per prefill forward and per recompute
+               hand-off, the paper's downtime ordering, finite logits,
+               and that an unswitched session fed the same tokens gives
+               the same logits.  Each
                switch prints what could hide in its downtime
                (``switch_probe``: the hand-off recompute's host dispatch
                and device span, allocator counters, garbage collections,

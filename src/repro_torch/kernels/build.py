@@ -116,8 +116,8 @@ def load() -> ctypes.CDLL:
             F = ctypes.c_float
             for name in ("flash_decode_f32", "flash_decode_bf16"):
                 fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, I, P, P, P, P, P,
-                               I, I, I, I, I, I, I, F, P]
+                fn.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I,
+                               F, P]
                 fn.restype = I
             for name in ("flash_attention_f32", "flash_attention_bf16"):
                 fn = getattr(lib, name)

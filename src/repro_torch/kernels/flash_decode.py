@@ -13,7 +13,8 @@ model, far too few blocks for 132 SMs, so the kernel splits the live
 prefix ``[0, min(pos, S))`` across ``n_split`` blocks a (row, KV head):
 ``split_plan`` fixes the grid from the shapes alone, each block finds its
 share on the device (``slice_bounds`` mirrors the arithmetic), and the
-block that finishes last merges the f32 partials in the same launch.
+n_split blocks of a row, one thread-block cluster, merge their f32
+partials through distributed shared memory in the same launch.
 ``pos`` stays on the device: the hot path never waits on the host, and a
 call can be captured in a CUDA graph and replayed with ``pos`` changed in
 place.
@@ -29,15 +30,17 @@ Contract (the Pallas kernel's, held by both versions):
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 ALIGN_K = 16                # a slice starts at a multiple of this many
                             # keys (kAlign in the .cu)
-TARGET_BLOCKS = 128         # blocks a call aims at: one wave of 132 SMs
-MAX_ROW_TILE = 8            # query heads a block (GT in the .cu)
+TARGET_BLOCKS = 256         # blocks a call aims at: two an SM of 132
+MAX_SPLIT = 16              # blocks a cluster, so splits a (row, KV head)
+MAX_ROW_TILE = 4            # query heads a block (GT in the .cu, which
+                            # compiles 1, 2, 4 and 8)
 
 
 def row_tile(G: int) -> Tuple[int, int]:
@@ -53,10 +56,12 @@ def row_tile(G: int) -> Tuple[int, int]:
 def split_plan(B: int, KH: int, S: int, row_groups: int = 1) -> int:
     """``n_split``: blocks a (row, KV head, row group) over the grid
     ``(B * KH * row_groups, n_split)``, from the shapes alone: about
-    ``TARGET_BLOCKS`` blocks in all, and no more splits than ``ALIGN_K``-key
-    units in the cache (a block past them would always be empty)."""
+    ``TARGET_BLOCKS`` blocks in all, at most ``MAX_SPLIT`` (the n_split
+    blocks of a row form one thread-block cluster), and no more splits
+    than ``ALIGN_K``-key units in the cache (a block past them would
+    always be empty)."""
     rows = max(B * KH * row_groups, 1)
-    want = max(1, TARGET_BLOCKS // rows)
+    want = max(1, min(TARGET_BLOCKS // rows, MAX_SPLIT))
     return min(want, max(1, -(-S // ALIGN_K)))
 
 
@@ -181,28 +186,6 @@ def _pos_buffer(pos, B: int, device) -> Tuple[torch.Tensor, int]:
     return buf, int(buf.numel() > 1)
 
 
-# (device index, stream handle) -> int32 ticket counters, zero at rest: a
-# call's last block resets its own, so calls in one stream's order share a
-# buffer, and calls that can run at the same time (other streams) do not.
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counter_buffer(device, stream, n: int) -> torch.Tensor:
-    """The stream's zeroed ticket counters, at least ``n`` of them.  They
-    are made outside a CUDA graph's capture (the zeroing would otherwise
-    happen only at replay): call once on a stream before capturing on it."""
-    key = (device.index, stream.cuda_stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("flash_decode_attention: call it once on this "
-                               "stream before capturing a CUDA graph (its "
-                               "ticket counters are zeroed outside capture)")
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
-
-
 def flash_decode_attention(q, k_cache, v_cache, *, pos):
     """q: (B, 1, H, D); k/v_cache HEADS-MAJOR (B, KH, S, D); pos: count of
     valid entries, scalar or ``(B,)``.  Returns (B, 1, H, D).
@@ -225,22 +208,13 @@ def flash_decode_attention(q, k_cache, v_cache, *, pos):
     lib = build.load()
     pos_buf, per_row = _pos_buffer(pos, B, q.device)
     n_split = split_plan(B, KH, S, RG)
-    stream = torch.cuda.current_stream(q.device)
-    counters = _counter_buffer(q.device, stream, B * KH * RG)
-    # one f32 scratch for the partials: acc [rows, D] first (16-byte
-    # aligned for the merge's loads), then m [rows], l [rows]
-    rows = B * KH * RG * n_split * GT
-    part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
-    part_acc = part.data_ptr()
-    part_m = part_acc + 4 * rows * D
-    part_l = part_m + 4 * rows
     out = torch.empty_like(q)
     fn = lib.flash_decode_bf16 if q.dtype == torch.bfloat16 \
         else lib.flash_decode_f32
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             pos_buf.data_ptr(), per_row, out.data_ptr(), part_acc, part_m,
-             part_l, counters.data_ptr(), B, H, KH, GT, S, D, n_split,
-             _scale_log2(D), stream.cuda_stream)
+             pos_buf.data_ptr(), per_row, out.data_ptr(), B, H, KH, GT, S,
+             D, n_split, _scale_log2(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"cudaError_t {err}")

@@ -130,7 +130,7 @@ def test_kernel_full_width_ragged_pos_and_repeat(cuda, H, KH, D):
 @pytest.mark.parametrize("H,KH,D", FD_FULL)
 def test_kernel_consecutive_calls_reset_their_counters(cuda, H, KH, D):
     """64 calls in a row with changing pos, each held to the plain version:
-    a ticket counter left non-zero would merge early or never."""
+    nothing a call leaves behind may change the next one."""
     q, k, v = _fd_inputs(cuda, 1, H, KH, D, torch.bfloat16, seed=7)
     g = torch.Generator().manual_seed(8)
     for i in range(64):
@@ -148,7 +148,7 @@ def test_kernel_replays_in_a_cuda_graph(cuda):
     pos_t = torch.tensor(1025, dtype=torch.int32, device=cuda)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):              # warm up where it captures
+    with torch.cuda.stream(stream):    # load and configure, uncaptured
         FD.flash_decode_attention(q, k, v, pos=pos_t)
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()

@@ -162,25 +162,29 @@ def test_split_plan_covers_the_cache(B, KH, S):
     n = FD.split_plan(B, KH, S)
     assert n >= 1
     assert (n - 1) * FD.ALIGN_K < S              # no split always empty
-    assert B * KH * n <= max(FD.TARGET_BLOCKS, B * KH)   # one wave at most
+    assert n <= FD.MAX_SPLIT                     # one cluster a row
+    assert B * KH * n <= max(FD.TARGET_BLOCKS, B * KH)
     assert FD.split_plan(B, KH, S, row_groups=2) <= n
 
 
 def test_split_plan_fills_the_card_at_the_served_shape():
-    # qwen2.5-3b (B 1, 2 KV heads) and zamba2-7b (32 KV heads), max_seq 2048:
-    # one block a split and KV head, ~one wave over the H100's 132 SMs
-    assert FD.split_plan(1, 2, 2048) == 64
-    assert FD.split_plan(1, 32, 2048) == 4
-    for KH in (2, 32):
-        n = FD.split_plan(1, KH, 2048)
+    # qwen2.5-3b (B 1, 2 KV heads of 8 query heads, two row groups of 4):
+    # a full cluster of 16 a row group; zamba2-7b (32 KV heads, G 1): 8 a
+    # head, about two blocks an SM of 132
+    assert FD.row_tile(8) == (4, 2) and FD.row_tile(1) == (1, 1)
+    assert FD.split_plan(1, 2, 2048, row_groups=2) == 16
+    assert FD.split_plan(1, 32, 2048) == 8
+    for KH, rg in ((2, 2), (32, 1)):
+        n = FD.split_plan(1, KH, 2048, row_groups=rg)
         # at the served pos every block has keys: 1025 live keys
         assert all(k1 > k0 for k0, k1 in
                    (FD.slice_bounds(1025, i, n) for i in range(n)))
 
 
 @pytest.mark.parametrize("G,want", [(1, (1, 1)), (2, (2, 1)), (3, (4, 1)),
-                                    (8, (8, 1)), (12, (8, 2)), (32, (8, 4))])
+                                    (8, (4, 2)), (12, (4, 3)), (32, (4, 8))])
 def test_row_tile(G, want):
+    assert FD.MAX_ROW_TILE == 4
     assert FD.row_tile(G) == want
 
 
@@ -188,7 +192,7 @@ def _plans():
     """Every n_split the plan gives for some grid, and a few beyond."""
     return sorted({FD.split_plan(B, KH, S) for B in (1, 2, 4)
                    for KH in (1, 2, 8, 32) for S in (1, 17, 64, 100, 2048)}
-                  | {1, 3, 7, FD.TARGET_BLOCKS})
+                  | {1, 3, 7, FD.MAX_SPLIT})
 
 
 _PLANS = _plans()

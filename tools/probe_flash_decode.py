@@ -2,10 +2,12 @@
 several grid plans, and read one full-width qwen2.5-3b decode step.
 
     python3 tools/probe_flash_decode.py [--targets 64,128,256]
-        [--pos 64,1024,2048] [--step] [--src DIR]
+        [--row-tiles 4,8] [--pos 64,1024,2048] [--step] [--copy]
+        [--src DIR]
 
 For each ``TARGET_BLOCKS`` in ``--targets`` (the blocks a call aims at,
-``kernels/flash_decode.py:split_plan``) and each served decode shape
+``kernels/flash_decode.py:split_plan``), each ``MAX_ROW_TILE`` in
+``--row-tiles`` (query heads a block) and each served decode shape
 (qwen2.5-3b: 16 / 2 heads of 128; zamba2-7b's shared attention: 32 / 32
 heads of 112; bf16, ``max_seq`` 2048): the kernel's device time a call at
 every ``--pos`` (torch.profiler, chip_smoke.py's ``decode_device_us``,
@@ -13,6 +15,9 @@ caches rotated out of L2) and its CUDA-event time at pos 1024.  With
 ``--step``, one qwen2.5-3b decode step (full width, bf16, random weights,
 prompt 1024) under torch.profiler: device ops (kernels and copies), aten
 operators, busy time and the flash-decode kernels' device time a call.
+With ``--copy``, the card's device-memory rate at zamba2-7b's size: a
+plain ``Tensor.copy_`` of the bytes a call reads at pos 1024 (14.7 MB),
+CUDA events, rotated out of L2.
 ``--src DIR`` imports the port from ``DIR/src`` instead of this checkout,
 so that a parent tree is read by the same probe (its kernel timing is
 skipped: only ``--step``).  Prints a JSON line a reading.  Needs one CUDA
@@ -35,7 +40,7 @@ STEP_KEYS = ("flash_decode_kernel", "decode_split_kernel",
              "decode_combine_kernel")
 
 
-def time_plans(CS, FD, targets, positions, seed: int) -> None:
+def time_plans(CS, FD, targets, tiles, positions, seed: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for name, sh in SHAPES.items():
         B, H, KH, S, D = (sh[k] for k in ("B", "H", "KH", "S", "D"))
@@ -49,16 +54,18 @@ def time_plans(CS, FD, targets, positions, seed: int) -> None:
         vs = [rand((B, KH, S, D)) for _ in range(n)]
         pos_t = torch.tensor(1024, dtype=torch.int32, device="cuda")
         for target in targets:
-            FD.TARGET_BLOCKS = target
-            n_split = FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1])
-            device_us = {p: CS.decode_device_us(FD, qs, ks, vs, p)
-                         for p in positions}
-            ms = CS.cuda_ms(lambda i: FD.flash_decode_attention(
-                qs[i % n], ks[i % n], vs[i % n], pos=pos_t), 200)
-            print(json.dumps({"shape": name, "target_blocks": target,
-                              "n_split": n_split,
-                              "device_us_per_call": device_us,
-                              "event_ms_pos1024": ms}), flush=True)
+            for tile in tiles:
+                FD.TARGET_BLOCKS, FD.MAX_ROW_TILE = target, tile
+                GT, RG = FD.row_tile(H // KH)
+                device_us = {p: CS.decode_device_us(FD, qs, ks, vs, p)
+                             for p in positions}
+                ms = CS.cuda_ms(lambda i: FD.flash_decode_attention(
+                    qs[i % n], ks[i % n], vs[i % n], pos=pos_t), 200)
+                print(json.dumps({
+                    "shape": name, "target_blocks": target, "row_tile": GT,
+                    "n_split": FD.split_plan(B, KH, S, RG),
+                    "device_us_per_call": device_us,
+                    "event_ms_pos1024": ms}), flush=True)
 
 
 def read_step(CS, seed: int) -> None:
@@ -88,11 +95,24 @@ def read_step(CS, seed: int) -> None:
     CS.shut(mgr)
 
 
+def copy_rate(CS) -> None:
+    nbytes = 2 * 32 * 1024 * 112 * 2         # zamba2-7b's K and V, pos 1024
+    srcs = [torch.empty(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+            for _ in range(8)]
+    dsts = [torch.empty_like(t) for t in srcs]
+    ms = CS.cuda_ms(lambda i: dsts[i % 8].copy_(srcs[(i + 3) % 8]), 200)
+    print(json.dumps({"copy_bytes": nbytes, "copy_ms": ms,
+                      "read_plus_write_TBps": 2 * nbytes / ms / 1e9}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--targets", default="")
+    ap.add_argument("--row-tiles", default="")
     ap.add_argument("--pos", default="64,1024,2048")
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--copy", action="store_true")
     ap.add_argument("--src", default=ROOT)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -106,8 +126,12 @@ def main() -> None:
     if os.path.abspath(args.src) == ROOT:
         targets = [int(t) for t in args.targets.split(",") if t] \
             or [FD.TARGET_BLOCKS]
+        tiles = [int(t) for t in args.row_tiles.split(",") if t] \
+            or [FD.MAX_ROW_TILE]
         positions = [int(p) for p in args.pos.split(",") if p]
-        time_plans(CS, FD, targets, positions, args.seed)
+        time_plans(CS, FD, targets, tiles, positions, args.seed)
+    if args.copy:
+        copy_rate(CS)
     if args.step:
         read_step(CS, args.seed)
 
