@@ -15,9 +15,9 @@
 // cross-block merge.  The design follows from that:
 //
 //   * one grid (B * KH * RG, n_split), fixed by the host from shapes alone
-//     (RG row groups of GT query heads, GT a power of two up to 8; fewer
-//     heads a block shorten its work after the last tile lands, more
-//     blocks read K and V again from L2).  Every block reads its
+//     (RG row groups of GT query heads, GT 1, 2 or 4: fewer heads a
+//     block shorten its work after the last tile lands, more row groups
+//     read K and V again from L2).  Every block reads its
 //     row's valid = min(pos, S) on the device and takes an equal share of
 //     [0, valid) in units of kAlign keys (`slice_of`), so every block has
 //     keys whatever max_seq is, and pos never goes to the host (the call
@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   constexpr int TK = Cfg<T>::TK;
   // keys a key group scores together: independent dot products and
   // shuffles in flight, one rescale of the accumulator for them all
-  constexpr int BATCH = GT >= 4 ? 8 / GT : 2;
+  constexpr int BATCH = 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float s_m[kWarps][GT], s_l[kWarps][GT];
   __shared__ float bm[GT], bl[GT];         // the block's partial: m, l
@@ -557,7 +557,6 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
     case 1: FD_LAUNCH(1);
     case 2: FD_LAUNCH(2);
     case 4: FD_LAUNCH(4);
-    case 8: FD_LAUNCH(8);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FD_LAUNCH
@@ -568,7 +567,7 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 extern "C" {
 
 // Returns a cudaError_t (0 on success).  Pointers are device pointers,
-// `stream` a cudaStream_t; shapes, the row tile GT (1, 2, 4 or 8) and
+// `stream` a cudaStream_t; shapes, the row tile GT (1, 2 or 4) and
 // n_split (1..16, the cluster's size) were checked and chosen by the
 // Python wrapper; scale_log2 is log2(e) / sqrt(D).
 int flash_decode_f32(const void* q, const void* k, const void* v,

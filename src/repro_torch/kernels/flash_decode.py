@@ -40,7 +40,7 @@ ALIGN_K = 16                # a slice starts at a multiple of this many
 TARGET_BLOCKS = 256         # blocks a call aims at: two an SM of 132
 MAX_SPLIT = 16              # blocks a cluster, so splits a (row, KV head)
 MAX_ROW_TILE = 4            # query heads a block (GT in the .cu, which
-                            # compiles 1, 2, 4 and 8)
+                            # compiles 1, 2 and 4)
 
 
 def row_tile(G: int) -> Tuple[int, int]:

@@ -2,7 +2,7 @@
 several grid plans, and read one full-width qwen2.5-3b decode step.
 
     python3 tools/probe_flash_decode.py [--targets 64,128,256]
-        [--row-tiles 4,8] [--pos 64,1024,2048] [--step] [--copy]
+        [--row-tiles 2,4] [--pos 64,1024,2048] [--step] [--copy]
         [--src DIR]
 
 For each ``TARGET_BLOCKS`` in ``--targets`` (the blocks a call aims at,
@@ -20,8 +20,7 @@ plain ``Tensor.copy_`` of the bytes a call reads at pos 1024 (14.7 MB),
 CUDA events, rotated out of L2.
 ``--src DIR`` imports the port from ``DIR/src`` instead of this checkout,
 so that a parent tree is read by the same probe (its kernel timing is
-skipped: only ``--step``).  Prints a JSON line a reading.  Needs one CUDA
-card.
+skipped).  Prints a JSON line a reading.  Needs one CUDA card.
 """
 from __future__ import annotations
 
