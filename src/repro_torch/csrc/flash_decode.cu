@@ -96,9 +96,14 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* src, float* dst) {
   }
 }
 
-__device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16(v);
+// four outputs at once (16-byte aligned for f32, 8-byte for bf16)
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                         __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -218,13 +223,15 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   const int bh = bhr / RG;
   const int g0 = (bhr % RG) * GT;          // first query head of the tile
   const int nvec = D / VEC;                // 16-byte columns of a row
-  int L = 1;                               // lanes a key: pow2 >= nvec
-  while (L < nvec) L <<= 1;
+  int lg = 0;                              // lanes a key: L = 2^lg >= nvec
+  while ((1 << lg) < nvec) ++lg;
+  const int L = 1 << lg;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = lane & (L - 1);            // this lane's column
+  const int kl = lane >> lg;               // this lane's key of the warp's
   const bool col = c < nvec;
-  const int per_warp = 32 / L;             // keys a warp takes at once
+  const int per_warp = 32 >> lg;           // keys a warp takes at once
   const int n_slots = kWarps * per_warp;
   float* xacc = reinterpret_cast<float*>(smem_raw);   // after the tiles
   // [n_split][per_block] float4: every split's partial of this block's
@@ -290,12 +297,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
       const T* kt = ks + (size_t)(t % kStages) * TK * D;
       const T* vt = vs + (size_t)(t % kStages) * TK * D;
       // j0 is uniform across the warp, so every lane takes the shuffles;
-      // key r of the batch is j0 + r * n_slots + lane / L
+      // key r of the batch is j0 + r * n_slots + kl
       for (int j0 = warp * per_warp; j0 < n; j0 += BATCH * n_slots) {
         float s[BATCH][GT];
 #pragma unroll
         for (int r = 0; r < BATCH; ++r) {
-          const int j = j0 + r * n_slots + lane / L;
+          const int j = j0 + r * n_slots + kl;
           float kx[VEC];
           if (j < n && col) {
             widen(kt + (size_t)j * D + c * VEC, kx);
@@ -321,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
         }
 #pragma unroll
         for (int r = 0; r < BATCH; ++r) {
-          const bool live = j0 + r * n_slots + lane / L < n;
+          const bool live = j0 + r * n_slots + kl < n;
 #pragma unroll
           for (int i = 0; i < GT; ++i)
             s[r][i] = live ? s[r][i] * scale_log2 : -CUDART_INF_F;
@@ -342,12 +349,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
         }
 #pragma unroll
         for (int r = 0; r < BATCH; ++r) {
-          if (j0 + r * n_slots + lane / L >= n) continue;
+          if (j0 + r * n_slots + kl >= n) continue;
 #pragma unroll
           for (int i = 0; i < GT; ++i) l[i] += s[r][i];
           if (col) {
             float vx[VEC];
-            widen(vt + (size_t)(j0 + r * n_slots + lane / L) * D + c * VEC,
+            widen(vt + (size_t)(j0 + r * n_slots + kl) * D + c * VEC,
                   vx);
 #pragma unroll
             for (int i = 0; i < GT; ++i) {
@@ -487,11 +494,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     }
     if (r == 0 && it < GT * d4n && g0 + it / d4n < G) {
       const float den = fmaxf(ls, 1e-30f);
-      T* o = ob + (size_t)(it / d4n) * D + (it % d4n) * 4;
-      store(o, a.x / den);
-      store(o + 1, a.y / den);
-      store(o + 2, a.z / den);
-      store(o + 3, a.w / den);
+      store4(ob + (size_t)(it / d4n) * D + (it % d4n) * 4,
+             make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
     }
   }
 }

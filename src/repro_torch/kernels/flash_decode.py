@@ -83,7 +83,7 @@ def _scale(D: int) -> float:
 
 
 def _scale_log2(D: int) -> float:
-    """log2(e)/sqrt(D): the kernel's scores are in base 2 (``exp2f``)."""
+    """log2(e)/sqrt(D): the kernel's exponentials are base 2."""
     return float(np.float32(math.log2(math.e) / math.sqrt(D)))
 
 
@@ -152,8 +152,8 @@ def _check(q, k_cache, v_cache):
 def _check_launchable(q, k_cache, v_cache) -> None:
     """What the kernel itself needs beyond ``_check``: 16-byte loads along
     D, at most 32 of them a row (one a lane of a warp), and contiguous
-    16-byte-aligned operands.  Its shared memory (a ring of four tiles of
-    K and V, at most 128 KB at that reach) does not grow with G."""
+    16-byte-aligned operands.  Its shared memory (a ring of five tiles of
+    K and V, at most 160 KB at that reach) does not grow with G."""
     D = q.shape[3]
     vec = 16 // q.element_size()
     if D % vec:
