@@ -925,10 +925,6 @@ def device_kernels(cfg) -> tuple:
     return tuple(names)
 
 
-# ---------------------------------------------------------------------------
-# what a switch's downtime could hide
-# ---------------------------------------------------------------------------
-
 def decode_registers(log) -> dict:
     """``{"<type>,<rows>": [registers, spill store bytes, spill load
     bytes]}`` of each flash-decode instantiation, from ptxas's report in
@@ -950,6 +946,10 @@ def decode_registers(log) -> dict:
             name = None
     return out
 
+
+# ---------------------------------------------------------------------------
+# what a switch's downtime could hide
+# ---------------------------------------------------------------------------
 
 def smi_clocks() -> str:
     """The card's SM clock and its active clock-event (throttle) reasons."""
