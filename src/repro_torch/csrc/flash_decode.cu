@@ -253,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   __shared__ __align__(8) uint64_t bars[kStages];     // a tile's landing
   // tile t into stage t % kStages: its K rows and its V rows are each one
   // contiguous run in the cache and in the ring, one bulk copy each
-  auto issue = [&](int t) {
+  auto fetch = [&](int t) {
     const int st = t % kStages;
     const uint32_t bytes = min(TK, len - t * TK) * D * (int)sizeof(T);
     mbar_expect_tx(smem_addr(bars + st), 2 * bytes);
@@ -265,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(smem_addr(bars + st), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < kStages && t < n_tiles; ++t) issue(t);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) fetch(t);
   }
 
   // the group's q rows while the tiles land
@@ -366,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
         }
       }
       __syncthreads();                    // the stage may be refilled
-      if (threadIdx.x == 0 && t + kStages < n_tiles) issue(t + kStages);
+      if (threadIdx.x == 0 && t + kStages < n_tiles) fetch(t + kStages);
     }
 
     // the warp's key groups, merged by shuffles (lanes o apart share a
