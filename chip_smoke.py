@@ -237,8 +237,9 @@ def phase_kernel(FD, gen) -> dict:
 def decode_device_us(FD, qs, ks, vs, pos: int, reps: int = 40) -> dict:
     """The flash-decode kernel's device microseconds a call at ``pos``
     (torch.profiler over ``reps`` calls on the rotating caches ``qs``,
-    ``ks``, ``vs``), checked to be one launch of ``DECODE_KERNEL`` a call
-    and no other device work."""
+    ``ks``, ``vs``), checked to be at most one launch of ``DECODE_KERNEL``
+    a call and no other device work.  The trace can lose a kernel's record
+    (PERF.md, PR 17 runs F, G), so the mean is over the records it holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n = len(qs)
@@ -260,10 +261,10 @@ def decode_device_us(FD, qs, ks, vs, pos: int, reps: int = 40) -> dict:
     kern = [e for e in events if DECODE_KERNEL in e.key]
     launches = sum(e.count for e in kern)
     other = [e.key[:60] for e in events if DECODE_KERNEL not in e.key]
-    check(launches == reps and not other,
+    check(0 < launches <= reps and not other,
           f"flash_decode at pos {pos}: {launches} {DECODE_KERNEL} launches "
           f"in {reps} calls, other device work {other}")
-    return sum(e.self_device_time_total for e in kern) / reps
+    return sum(e.self_device_time_total for e in kern) / launches
 
 
 def time_decode(FD, rand, B, H, KH, S, D) -> dict:
@@ -327,14 +328,14 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "device_us_per_call": device_us, "host_us_per_call": host_us,
-           "n_split": FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1]),
            "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
     print(f"[kernel] flash_decode full-width bf16 {out['shape']}: kernel "
           f"{out['ms']:.5f} ms, plain {out['plain_ms']:.5f} ms, library "
           f"{lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
           f"{out['bound_ms']:.6f} ms ({out['bound_by']}); device time a "
           f"call by pos {device_us} us; wrapper host time a call "
-          f"{host_us:.2f} us; n_split {out['n_split']}")
+          f"{host_us:.2f} us; n_split "
+          f"{FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1])}")
     return out
 
 
@@ -1210,15 +1211,18 @@ def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
             logits, prof = profile_step(lambda: ref.serve(feed)[0],
                                         request_bound_ms(cfg, params, 1),
                                         device_kernels(cfg))
-            # the kernel the step launched must show in the trace: a
-            # renamed kernel would otherwise read as 0 device time (the
-            # trace may drop a launch: its count is printed, not held)
+            # the step's launches must show in the trace with device time
+            # (a renamed kernel would otherwise read as 0), and no more of
+            # them than the wrapper made; the trace can lose a record
+            # (PERF.md, PR 17 runs A, F, G), so fewer are not held
             want = per_step["flash_decode_attention"]
             got = prof.get("kernel_calls", {}).get(DECODE_KERNEL, 0)
-            check(not want or (got > 0 and prof[
+            check(not want or (0 < got <= want and prof[
                 "kernel_device_ms_by_name"][DECODE_KERNEL] > 0),
-                f"the profiled step shows no {DECODE_KERNEL} launch with "
-                f"device time, want {want} ({prof.get('error', '')})")
+                f"the profiled step shows {got} {DECODE_KERNEL} launches "
+                f"with device time, want {want} (host kernel launches vs "
+                f"records traced: {prof.get('kernel_launches_vs_records')}; "
+                f"{prof.get('error', '')})")
         else:
             logits, _ = ref.serve(feed)
         ref_logits.append(logits.float().cpu())
@@ -1293,7 +1297,8 @@ def profile_step(call, bound_ms, kernel_keys):
     """One request (``call()`` returns its logits) under torch.profiler:
     device busy time (the sum of the kernels' and copies' own device time,
     counted once each), idle share of the request's wall, the device ops
-    (kernels and copies) and the aten operators it ran, the device time,
+    (kernels and copies) and the aten operators it ran, the kernel
+    launches the host made beside the kernel records traced, the device time,
     launches and share of the kernels whose names contain one of
     ``kernel_keys``, and busy time over the request's bound ``bound_ms``
     (``request_bound_ms``)."""
@@ -1327,6 +1332,12 @@ def profile_step(call, bound_ms, kernel_keys):
     aten = sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CPU
                and e.key.startswith("aten::"))
+    # kernel launches the host made against kernel records the trace holds
+    # (copies and memsets aside): a shortfall of records is the trace's
+    api = sum(e.count for e in prof.key_averages()
+              if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    records = sum(e.count for e in events
+                  if not e.key.startswith(("Memcpy", "Memset")))
     kern = sum(by_kernel.values()) * 1e3
     bound_us = bound_ms * 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -1335,6 +1346,7 @@ def profile_step(call, bound_ms, kernel_keys):
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": max(0.0, 1.0 - busy / wall_us) if wall_us else None,
         "device_ops": sum(e.count for e in events), "aten_ops": aten,
+        "kernel_launches_vs_records": [api, records],
         "kernel_device_ms": kern / 1e3, "kernel_device_ms_by_name": by_kernel,
         "kernel_calls": calls,
         "kernel_device_us_per_launch": {

@@ -284,16 +284,14 @@ class StatefulStageRunner:
             return FD.flash_decode_attention(q, kc, vc, pos=valid)
         return Lyr.decode_attention(q, kc, vc, pos=valid)
 
-    @staticmethod
-    def _step_operands(pos):
+    def _step_operands(self, pos, B: int):
         """What every attention unit of a decode step needs from ``pos``,
         computed once a step: the valid length ``pos + 1`` and the cache
-        write's index (``_cache_write``)."""
-        if pos.dim() == 0:
-            where = pos.reshape(1).long()
-        else:
-            where = (torch.arange(pos.shape[0], device=pos.device),
-                     pos.long())
+        write's index (``_cache_write``), ``pos`` broadcast to the
+        one-token update's (B, KH, 1, hd) for a scalar or ``(B,)`` pos."""
+        cfg = self.cfg
+        where = pos.reshape(-1, 1, 1, 1).long().expand(
+            B, cfg.num_kv_heads, 1, cfg.head_dim)
         return pos + 1, where
 
     def _decode_rope(self, pos):
@@ -309,14 +307,9 @@ class StatefulStageRunner:
     @staticmethod
     def _cache_write(cache, val, where):
         """Write a one-token heads-major (B, KH, 1, hd) update at the
-        decode position IN PLACE (see the module docstring): one indexed
-        copy for a shared scalar pos (``where`` its (1,) index), a per-row
-        scatter for ``(B,)`` (``where`` the rows and their positions)."""
-        if isinstance(where, tuple):
-            rows, cols = where
-            cache[rows, :, cols] = val[:, :, 0]
-            return cache
-        return cache.index_copy_(2, where, val)
+        decode position IN PLACE (see the module docstring): one scatter
+        along the sequence, ``where`` the position of every value."""
+        return cache.scatter_(2, where, val)
 
     @property
     def num_units(self) -> int:
@@ -368,7 +361,8 @@ class StatefulStageRunner:
             new: Dict[str, Any] = {}
             bounds = []
             rope = self._decode_rope(pos) if attends else None
-            operands = self._step_operands(pos) if attends else None
+            operands = self._step_operands(pos, x.shape[0]) if attends \
+                else None
             for unit in units:
                 bounds.append(x)
                 x = self._decode_unit(params, unit, x, cache, new, operands,

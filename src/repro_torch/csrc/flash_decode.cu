@@ -508,24 +508,22 @@ int launch_gt(const void* q, const void* k, const void* v, const int* pos,
   const size_t smem = main_bytes<T>(D, GT) +
                       sizeof(float4) * (size_t)n_split * per_block;
   auto kernel = flash_decode_kernel<T, GT>;
-  // the opt-ins (above 48 KB of shared memory, clusters above 8 blocks),
-  // once a device and instantiation
-  static int allowed[64], wide[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && (dev >= 64 || (int)smem > allowed[dev])) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) allowed[dev] = (int)smem;
-  }
-  if (n_split > 8 && (dev >= 64 || !wide[dev])) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) wide[dev] = 1;
-  }
+  // the opt-ins, set once an instantiation by whichever host thread comes
+  // first: the largest shared memory the wrapper admits (D of 32 16-byte
+  // loads, kMaxSplit splits) and clusters above 8 blocks
+  static const cudaError_t opted = [kernel] {
+    constexpr int kMaxD = 32 * Cfg<T>::VEC;
+    const size_t most = main_bytes<T>(kMaxD, GT) +
+                        sizeof(float4) * ((size_t)GT * (kMaxD / 4) +
+                                          kMaxSplit - 1);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  if (opted != cudaSuccess) return (int)opted;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * KH * RG, n_split);
   config.blockDim = dim3(kThreads);
@@ -538,10 +536,10 @@ int launch_gt(const void* q, const void* k, const void* v, const int* pos,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v),
-                           pos, per_row, static_cast<T*>(out), KH, G, RG, S,
-                           D, n_split, scale_log2);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, per_row, static_cast<T*>(out), KH, G,
+      RG, S, D, n_split, scale_log2);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -161,6 +161,19 @@ def test_kernel_replays_in_a_cuda_graph(cuda):
         _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_admits_its_largest_head_dim(cuda, dtype):
+    """The launch opt-ins, made once at an instantiation's first call,
+    cover the largest head dim the wrapper admits (32 16-byte loads a
+    row) at the widest cluster (16 splits), after a first small call."""
+    for D in (16, 32 * (16 // torch.empty((), dtype=dtype).element_size())):
+        q, k, v = _fd_inputs(cuda, 1, 8, 2, D, dtype, seed=10)
+        assert FD.split_plan(1, 2, 2048, FD.row_tile(4)[1]) == 16
+        pos_t = torch.tensor(1500, dtype=torch.int32, device=cuda)
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+
+
 def test_kernel_route_matches_reference_route(cuda):
     cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
                               num_layers=3, num_kv_heads=2)

@@ -2,8 +2,8 @@
 several grid plans, and read one full-width qwen2.5-3b decode step.
 
     python3 tools/probe_flash_decode.py [--targets 64,128,256]
-        [--row-tiles 2,4] [--pos 64,1024,2048] [--step] [--copy]
-        [--src DIR]
+        [--row-tiles 2,4] [--pos 64,1024,2048] [--step] [--steps N]
+        [--copy] [--src DIR]
 
 For each ``TARGET_BLOCKS`` in ``--targets`` (the blocks a call aims at,
 ``kernels/flash_decode.py:split_plan``), each ``MAX_ROW_TILE`` in
@@ -12,9 +12,12 @@ For each ``TARGET_BLOCKS`` in ``--targets`` (the blocks a call aims at,
 heads of 112; bf16, ``max_seq`` 2048): the kernel's device time a call at
 every ``--pos`` (torch.profiler, chip_smoke.py's ``decode_device_us``,
 caches rotated out of L2) and its CUDA-event time at pos 1024.  With
-``--step``, one qwen2.5-3b decode step (full width, bf16, random weights,
-prompt 1024) under torch.profiler: device ops (kernels and copies), aten
-operators, busy time and the flash-decode kernels' device time a call.
+``--step``, ``--steps`` (3) qwen2.5-3b decode steps (full width, bf16,
+random weights, prompt 1024), each under torch.profiler: device ops
+(kernels and copies), aten operators, busy time, the flash-decode
+kernels' device time a call, their traced launches beside the wrapper's
+count, the kernel launches the host made beside the records traced, and
+a hash of the step's logits (equal hashes across trees: bit-equal).
 With ``--copy``, the card's device-memory rate at zamba2-7b's size: a
 plain ``Tensor.copy_`` of the bytes a call reads at pos 1024 (14.7 MB),
 CUDA events, rotated out of L2.
@@ -25,6 +28,7 @@ skipped).  Prints a JSON line a reading.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -67,7 +71,7 @@ def time_plans(CS, FD, targets, tiles, positions, seed: int) -> None:
                     "event_ms_pos1024": ms}), flush=True)
 
 
-def read_step(CS, seed: int) -> None:
+def read_step(CS, FD, seed: int, steps: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.network import NetworkModel
     from repro_torch.core.stateful import make_stateful_manager
@@ -83,14 +87,19 @@ def read_step(CS, seed: int) -> None:
     for _ in range(8):
         mgr.serve(None)
     bound = CS.request_bound_ms(cfg, params, 1)
-    for i in range(3):
-        _, prof = CS.profile_step(lambda: mgr.serve(None)[0], bound,
-                                  STEP_KEYS)
+    for i in range(steps):
+        n0 = FD.flash_decode_attention.launches
+        logits, prof = CS.profile_step(lambda: mgr.serve(None)[0], bound,
+                                       STEP_KEYS)
         keep = ("device_busy_ms", "idle_share", "device_ops", "aten_ops",
                 "kernel_calls", "kernel_device_us_per_launch",
-                "kernel_device_ms")
-        print(json.dumps({"step": i, **{k: prof.get(k) for k in keep}}),
-              flush=True)
+                "kernel_device_ms", "kernel_launches_vs_records")
+        print(json.dumps({
+            "step": i, **{k: prof.get(k) for k in keep},
+            "wrapper_launches": FD.flash_decode_attention.launches - n0,
+            "logits_sha256": hashlib.sha256(
+                logits.float().cpu().numpy().tobytes()).hexdigest()[:16]}),
+            flush=True)
     CS.shut(mgr)
 
 
@@ -111,6 +120,7 @@ def main() -> None:
     ap.add_argument("--row-tiles", default="")
     ap.add_argument("--pos", default="64,1024,2048")
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--copy", action="store_true")
     ap.add_argument("--src", default=ROOT)
     ap.add_argument("--seed", type=int, default=0)
@@ -132,7 +142,7 @@ def main() -> None:
     if args.copy:
         copy_rate(CS)
     if args.step:
-        read_step(CS, args.seed)
+        read_step(CS, FD, args.seed, args.steps)
 
 
 if __name__ == "__main__":
