@@ -1,11 +1,12 @@
 """PipelinePool: the shared substrate all switching strategies operate on.
 
-The port's copy of ``repro/core/pool.py``, with two parts left for their
-slices: a cloud ``mesh_shape`` (sharded slice) raises
-``NotImplementedError``, and so does a ``fault_plan`` (``faults.py`` is not
-ported), so the reshard-on-activation and chaos hooks are not here.  The
-base pool builds stateless ``EdgeCloudPipeline``s; ``StatefulPipelinePool``
-overrides ``_new_pipeline`` with its decode pipelines.
+The port's copy of ``repro/core/pool.py``, with one part left for its
+slice: a cloud ``mesh_shape`` (sharded slice) raises
+``NotImplementedError``, so the reshard-on-activation hook is not here.  A
+``fault_plan`` (``core/faults.py``) is consulted before every build, as in
+the reference.  The base pool builds stateless ``EdgeCloudPipeline``s;
+``StatefulPipelinePool`` overrides ``_new_pipeline`` with its decode
+pipelines.
 
 The pool owns every built ``EdgeCloudPipeline``, keyed by a frozen
 ``PipelineKey`` (``split``, ``mesh_shape``, ``owns_weights``, with room
@@ -174,13 +175,14 @@ class PipelinePool:
                  executor: Optional[BuildExecutor] = None,
                  fault_plan=None,
                  mesh_shape: Optional[Tuple[int, ...]] = None):
-        if fault_plan is not None:
-            raise NotImplementedError("fault plans (faults.py) are not "
-                                      "ported yet")
         if mesh_shape is not None:
             raise NotImplementedError("a sharded cloud stage (mesh_shape) "
                                       "is not ported yet")
         self.runner = runner
+        # chaos valve (repro_torch.core.faults.FaultPlan or None): consulted
+        # before every pipeline build; unguarded — armed/swap is a
+        # benign publish, injectors do their own locking
+        self.fault_plan = fault_plan
         self.net = net
         self.sample_inputs = sample_inputs
         self.mem_budget_bytes = mem_budget_bytes
@@ -374,6 +376,11 @@ class PipelinePool:
                 if cached is not None and cached.pipeline.ready:
                     self._touch(cached)
                     return cached, True
+        plan = self.fault_plan
+        if plan is not None:
+            # chaos valve: may raise InjectedBuildFailure or stall.
+            # Outside the pool lock, like the build it gates.
+            plan.on_build(key)
         pipe = self._new_pipeline(key)
         report = pipe.build(self.sample_inputs, cold=cold,
                             reload_from=reload_from)

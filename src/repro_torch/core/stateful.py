@@ -54,7 +54,9 @@ Where the port differs from the reference, and why:
 * **Payloads** keep the reference's ``(dtype str, shape, bytes)`` entries
   and ``(epoch, pos, crc32)`` envelope, so the two packages' hand-offs
   interchange; bf16 travels as its raw 16-bit pattern tagged
-  ``"bfloat16"``, which is also what the reference's bytes are.
+  ``"bfloat16"``, which is also what the reference's bytes are.  On the
+  card a payload's tensors cross to and from the host through
+  page-locked memory (``_to_payload``, ``_from_payload``).
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ import time
 import warnings
 import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +88,9 @@ from repro_torch.kernels import flash_decode as FD
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+
+if TYPE_CHECKING:
+    from repro_torch.serving.sessions import SessionManager
 
 _ATTN_FAMILIES = ("dense",)
 _SUPPORTED = _ATTN_FAMILIES + ("ssm", "hybrid")
@@ -132,20 +137,41 @@ def payload_checksum(payload: Dict[Any, tuple]) -> int:
 
 
 def _to_payload(t: torch.Tensor) -> Tuple[str, np.ndarray]:
-    """A tensor as (dtype str, host array); bf16 as its 16-bit pattern."""
-    t = t.detach().contiguous().cpu()
+    """A tensor as (dtype str, host array); bf16 as its 16-bit pattern.
+
+    A CUDA tensor lands in page-locked host memory (PyTorch's caching host
+    allocator reuses the blocks): one DMA, where a copy into pageable
+    memory is staged through a CUDA bounce buffer (PERF.md: the
+    hand-off's export and import halves).  The array views that memory
+    until the caller's ``tobytes()``."""
+    t = t.detach()
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        t = host.copy_(t)
+    else:
+        t = t.contiguous()
     if t.dtype == torch.bfloat16:
         return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
     a = t.numpy()
     return str(a.dtype), a
 
 
-def _from_payload(dtype: str, shape, buf: bytes) -> torch.Tensor:
-    if dtype == "bfloat16":
-        a = np.frombuffer(buf, dtype=np.uint16).reshape(shape)
-        return torch.from_numpy(a.copy()).view(torch.bfloat16)
-    a = np.frombuffer(buf, dtype=dtype).reshape(shape)
-    return torch.from_numpy(a.copy())
+def _from_payload(dtype: str, shape, buf: bytes,
+                  device=None) -> torch.Tensor:
+    """An entry's bytes as a tensor on ``device`` (the CPU by default);
+    raises ``ValueError``/``TypeError`` on a short buffer or a bad dtype.
+    For a CUDA ``device`` the bytes are copied once, into page-locked host
+    memory, and DMA'd from there (see ``_to_payload``)."""
+    bf16 = dtype == "bfloat16"
+    a = np.frombuffer(buf, dtype=np.uint16 if bf16 else dtype).reshape(shape)
+    if device is not None and torch.device(device).type == "cuda":
+        host = torch.empty(a.shape, pin_memory=True,
+                           dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+        host.numpy()[...] = a
+        t = host.to(device, non_blocking=True)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 # ---------------------------------------------------------------------------
@@ -475,43 +501,50 @@ class StatefulStageRunner:
         conv_state = cat[torch.arange(B, device=x.device)[:, None], rows]
         return x + out, {"conv": conv_state, "ssm": hs}
 
+    def _masked_units(self, params, units, x, length, bounds=None):
+        """The masked unit loop over a zero-padded ``(B, max_seq, D)``
+        context: ``(x, caches, length)``, K/V caches masked beyond each
+        row's live prefix.  ``length``: the live prefix, a scalar shared by
+        the batch or per-row ``(B,)``.  Given a list, ``bounds`` collects
+        each unit's input, masked the same way."""
+        cfg = self.cfg
+        B, CL = x.shape[:2]
+        length = torch.as_tensor(length, device=x.device)
+        ar = torch.arange(CL, device=x.device)
+        if length.dim() == 0:
+            mask = (ar < length)[None, :].expand(B, CL)
+        else:
+            mask = ar[None, :] < length[:, None]
+        m = mask[:, :, None, None]
+        rope_cs = T._rope_for(cfg, CL, device=x.device) \
+            if self._has_attention(units) else None
+        caches: Dict[str, Any] = {}
+        for unit in units:
+            if bounds is not None:
+                bounds.append(x * mask[:, :, None])
+            kind, idx = unit
+            if not _is_attn_unit(cfg, unit):
+                ck, sk = _unit_state_keys(cfg, unit)
+                x, st = self._masked_mamba(layer_params(params, idx), x,
+                                           mask, length)
+                caches[ck], caches[sk] = st["conv"], st["ssm"]
+                continue
+            kk, vk = _unit_state_keys(cfg, unit)
+            p = params["shared"] if kind == "app" \
+                else layer_params(params, idx)
+            x, (k, v), _ = T.attn_block_full(
+                cfg, p, x, rope_cs, impl=self.attn_impl,
+                window=cfg.sliding_window)
+            caches[kk] = (k * m).transpose(1, 2).contiguous()
+            caches[vk] = (v * m).transpose(1, 2).contiguous()
+        return x, caches, length
+
     def _make_recompute_fn(self, u0: int, u1: int):
         units = self.units[u0:u1]
-        cfg = self.cfg
-        CL = self.max_seq
-        attends = self._has_attention(units)
 
         def fn(params, x, length):
-            # x: (B, CL, D) zero-padded context; length: live prefix — a
-            # scalar shared by the batch or per-row (B,)
-            B = x.shape[0]
-            length = torch.as_tensor(length, device=x.device)
-            ar = torch.arange(CL, device=x.device)
-            if length.dim() == 0:
-                mask = (ar < length)[None, :].expand(B, CL)
-            else:
-                mask = ar[None, :] < length[:, None]
-            m = mask[:, :, None, None]
-            rope_cs = T._rope_for(cfg, CL, device=x.device) \
-                if attends else None
-            caches: Dict[str, Any] = {}
-            for unit in units:
-                kind, idx = unit
-                if not _is_attn_unit(cfg, unit):
-                    ck, sk = _unit_state_keys(cfg, unit)
-                    x, st = self._masked_mamba(layer_params(params, idx), x,
-                                               mask, length)
-                    caches[ck], caches[sk] = st["conv"], st["ssm"]
-                    continue
-                kk, vk = _unit_state_keys(cfg, unit)
-                p = params["shared"] if kind == "app" \
-                    else layer_params(params, idx)
-                x, (k, v), _ = T.attn_block_full(
-                    cfg, p, x, rope_cs, impl=self.attn_impl,
-                    window=cfg.sliding_window)
-                caches[kk] = (k * m).transpose(1, 2).contiguous()
-                caches[vk] = (v * m).transpose(1, 2).contiguous()
-            return caches
+            # x: (B, max_seq, D) zero-padded context
+            return self._masked_units(params, units, x, length)[1]
         return fn
 
     def recompute_fn(self, u0: int, u1: int):
@@ -522,6 +555,44 @@ class StatefulStageRunner:
             if key not in self._full_cache:
                 self._full_cache[key] = self._make_recompute_fn(u0, u1)
             return self._full_cache[key]
+
+    # -- masked admission (slot pools) -----------------------------------
+    # Admitting a session into a live slot pool is a masked prefill at the
+    # pool's fixed (B, max_seq) bucket: the same zero-pad + masked-dt
+    # trick as the recompute arm, extended to also return the per-unit
+    # boundary activations and the logits at each row's last live token.
+    # One callable per runner, reused for every mid-flight join.
+
+    def _make_admit_fn(self):
+        cfg = self.cfg
+
+        def fn(params, tokens, length):
+            # tokens: (B, max_seq) zero-padded.  Boundary checkpoints are
+            # stored masked so slot buffers keep the zero-beyond-live-
+            # prefix invariant the sliced KV export/import path relies on
+            B = tokens.shape[0]
+            bounds = []
+            x, caches, length = self._masked_units(
+                params, self.units, params["embed"][tokens], length, bounds)
+            # each row's last live token; rows with length 0 (dead slots)
+            # clamp to position 0 and produce garbage logits the caller
+            # masks out
+            last = (length.reshape(-1).expand(B).long() - 1).clamp(min=0)
+            h = x[torch.arange(B, device=x.device), last][:, None]
+            h = T._apply_norm(cfg, params["final_norm"], h)
+            logits = (h[:, -1] @ T.lm_head_weights(cfg, params)).float()
+            b = torch.stack(bounds) if bounds \
+                else x.new_zeros((0, B, x.shape[1], x.shape[-1]))
+            return logits, caches, b
+        return fn
+
+    def admit_fn(self):
+        """Cached masked-admission fn ``(params, tokens, length) ->
+        (last_logits, caches, bounds)`` over the full unit range."""
+        with self._lock:
+            if ("admit",) not in self._full_cache:
+                self._full_cache[("admit",)] = self._make_admit_fn()
+            return self._full_cache[("admit",)]
 
     def _make_embed_fn(self):
         def fn(params, tokens):
@@ -808,7 +879,7 @@ class DecodeSession:
             for k, (dtype, shape, buf) in payload.items():
                 if k == HANDOFF_META_KEY:
                     continue
-                decoded[k] = _from_payload(dtype, shape, buf)
+                decoded[k] = _from_payload(dtype, shape, buf, self.device)
         except (ValueError, TypeError) as e:   # short buffer / bad dtype
             raise HandoffCorrupted(f"undecodable hand-off entry "
                                    f"{k!r}: {e}") from None
@@ -839,6 +910,12 @@ class DecodeSession:
         synchronize(self.device)
         with self._lock:
             self.cache.update(caches)
+
+    def replace_state(self, entries: Dict[str, Any]) -> None:
+        """Swap state buffers wholesale — the mesh-reshard path, where the
+        values are numerically identical and only device placement moved."""
+        with self._lock:
+            self.cache.update(entries)
 
     def warm_recompute(self, a: int, b: int) -> None:
         """Run the re-prefill of the layers between splits ``a`` and ``b``
@@ -882,7 +959,10 @@ class DecodeSession:
 # ---------------------------------------------------------------------------
 
 class StatefulEdgeCloudPipeline:
-    """Two built decode stages over a shared ``DecodeSession``.
+    """Two built decode stages over a shared ``DecodeSession``, or a
+    slot-pool ``SessionManager`` (``repro_torch.serving.sessions``), whose
+    ``(num_slots,)`` position vector makes each step decode the whole
+    ragged batch.
 
     ``process`` runs ONE decode step: the edge stage covers the embedding
     plus layers [0, split) (measured wall, scaled by ``edge_scale``), the
@@ -892,7 +972,8 @@ class StatefulEdgeCloudPipeline:
     request."""
 
     def __init__(self, runner: StatefulStageRunner, split: int,
-                 net: NetworkModel, *, session: DecodeSession,
+                 net: NetworkModel, *,
+                 session: Union[DecodeSession, "SessionManager"],
                  edge_scale: float = CLOUD_SPEC.flops / EDGE_SPEC.flops,
                  owns_weights: bool = False):
         self.runner = runner
@@ -1049,10 +1130,15 @@ class StatefulPipelinePool(PipelinePool):
     ``best`` unless ``force_mode`` pins it.  Entries carry the session
     epoch they were last synced at; a stale entry is re-synced at swap —
     the standby's built stages are reused, its view of the context is
-    not."""
+    not.  ``session`` is a ``DecodeSession`` or a slot-pool
+    ``SessionManager``: the whole batch hands off at once.  A pool's
+    ``fault_plan`` mutates the transfer arm's payload in transit; the
+    envelope check catches it and the hand-off recovers by masked
+    recompute (``HandoffReport.fallback``)."""
 
     def __init__(self, runner: StatefulStageRunner, net: NetworkModel,
-                 sample_inputs, *, session: DecodeSession,
+                 sample_inputs, *,
+                 session: Union[DecodeSession, "SessionManager"],
                  force_mode: Optional[str] = None, **kwargs):
         super().__init__(runner, net, sample_inputs, **kwargs)
         self.session = session
@@ -1081,8 +1167,12 @@ class StatefulPipelinePool(PipelinePool):
         sw = Stopwatch()
         if mode == "transfer":
             payload, nbytes = s.export_layers(lo, hi)
-            # the payload really crossed the link, so its priced seconds
-            # stand even when validation rejects it
+            fplan = self.fault_plan
+            if fplan is not None:
+                # chaos valve: in-transit corruption/truncation
+                fplan.mutate_handoff(payload, epoch=s.epoch)
+            # the (possibly corrupt) payload really crossed the link, so
+            # its priced seconds stand even when validation rejects it
             t_network = self.net.transfer_time(nbytes)
             try:
                 s.import_layers(payload)

@@ -127,6 +127,17 @@ def test_kernel_full_width_ragged_pos_and_repeat(cuda, H, KH, D):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_slot_pool_shape_per_row_pos(cuda, dtype):
+    """The slot pool's decode shape at qwen2.5-3b's full width: 4 slots,
+    per-row pos with a dead row (exact zeros) and one at max_seq - 1."""
+    q, k, v = _fd_inputs(cuda, 4, 16, 2, 128, dtype, seed=9)
+    rows = torch.tensor([1024, 0, 2047, 37], dtype=torch.int32, device=cuda)
+    out = FD.flash_decode_attention(q, k, v, pos=rows)
+    _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=rows))
+    assert torch.count_nonzero(out[1]) == 0
+
+
 @pytest.mark.parametrize("H,KH,D", FD_FULL)
 def test_kernel_consecutive_calls_reset_their_counters(cuda, H, KH, D):
     """64 calls in a row with changing pos, each held to the plain version:
@@ -172,6 +183,42 @@ def test_kernel_admits_its_largest_head_dim(cuda, dtype):
         pos_t = torch.tensor(1500, dtype=torch.int32, device=cuda)
         out = FD.flash_decode_attention(q, k, v, pos=pos_t)
         _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+
+
+def test_slot_pool_kernel_route_matches_reference_route(cuda):
+    """A 4-slot pool on the card (ragged admissions, one mid-flight, per-row
+    pos through the decode kernel, the masked admission through the
+    prefill kernel) against the same pool on the reference routes."""
+    from repro_torch.serving import make_session_manager
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              num_layers=2)
+    params = init_model(cfg, device=cuda, seed=0)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g)
+               for n in (9, 3, 17)]
+    pools = []
+    for attn, dec in (("kernel", "kernel"), ("chunked", "reference")):
+        mgr, sm = make_session_manager(cfg, params, split=1,
+                                       net=NetworkModel(1000.0), num_slots=4,
+                                       max_seq=64, attn_impl=attn,
+                                       decode_impl=dec, device=cuda)
+        pools.append((mgr, sm))
+    for (mgr, sm) in pools:
+        sm.admit(prompts[0]), sm.admit(prompts[1])
+    for step in range(4):
+        if step == 2:
+            for (_, sm) in pools:
+                sm.admit(prompts[2])
+        tok = pools[1][1].next_token()
+        for (mgr, _) in pools:
+            mgr.active.process({"token": tok})
+        a, b = pools[0][1], pools[1][1]
+        assert a.session_ids() == b.session_ids()
+        for sid in b.session_ids():
+            assert (a.logits_for(sid) - b.logits_for(sid)).abs().max() \
+                .item() <= 1e-3, (step, sid)
+    for (mgr, _) in pools:
+        mgr.close()
 
 
 def test_kernel_route_matches_reference_route(cuda):
@@ -293,12 +340,14 @@ def test_attention_kernels_at_head_dim_112(cuda):
         assert (out.float() - want.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("H,KH,D", [(16, 2, 128), (32, 32, 112)])
-def test_prefill_kernel_full_width_2048(cuda, H, KH, D):
-    """bf16 at the served widths (qwen2.5-3b, zamba2-7b's shared
-    attention) and the recompute arm's max_seq: 32 key tiles the last q
-    tile, 512 and 1024 (b, h, q tile) items."""
-    _fa_compare(cuda, 1, 2048, 2048, H, KH, D, torch.bfloat16, causal=True)
+@pytest.mark.parametrize("B,H,KH,D,dtype", [
+    (1, 16, 2, 128, torch.bfloat16), (1, 32, 32, 112, torch.bfloat16),
+    (4, 16, 2, 128, torch.float32), (4, 16, 2, 128, torch.bfloat16)])
+def test_prefill_kernel_full_width_2048(cuda, B, H, KH, D, dtype):
+    """At the served widths (qwen2.5-3b, zamba2-7b's shared attention) and
+    the recompute arm's max_seq: 32 key tiles the last q tile, 512 and
+    1024 (b, h, q tile) items; B 4 is a 4-slot pool's batch re-prefill."""
+    _fa_compare(cuda, B, 2048, 2048, H, KH, D, dtype, causal=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -297,7 +297,9 @@ def test_unported_parts_raise():
         assert unit_list(tget(arch))[0] == ("layer", 0)
     with pytest.raises(NotImplementedError):
         PipelineKey(split=1, mesh_shape=(1, 2))
-    with pytest.raises(NotImplementedError):
-        PipelinePool(None, NetworkModel(20.0), {}, fault_plan=object())
+    # fault plans are ported (tests/test_torch_faults.py): the pool keeps one
+    plan = object()
+    assert PipelinePool(None, NetworkModel(20.0), {},
+                        fault_plan=plan).fault_plan is plan
     with pytest.raises(NotImplementedError):
         PipelinePool(None, NetworkModel(20.0), {}, mesh_shape=(2,))
