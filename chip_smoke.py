@@ -82,9 +82,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                scripted switches 1/2 -> 1/4 -> 1/2 -> 1/4 of the depth
                under switch_b2, switch_a and pause_resume (reloading phase
                4's checkpoint), handing off on the plan's arm, and once
-               more under switch_b2 pinned to the transfer arm; checks the
-               measured stream downtime order, switch drops, each step's
-               and admission's launches, and every live slot's logits
+               more under switch_b2 and switch_a pinned to the transfer
+               arm (their downtimes printed side by side, not ordered);
+               checks the measured stream downtime order, switch drops,
+               each step's and admission's launches, and every live
+               slot's logits
                against a twin pool that never switched, fed the same
                admissions and tokens (bit-equal until the first hand-off
                and after transfers, 5% after a re-prefill).  7b: a
@@ -93,7 +95,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                repartition, its fallback to recompute, the logits after.
                Prints each stream's downtime, drops, p50/p99, admission
                walls and a probe a switch.
-8. report    — prints the script's wall, the ``kernels`` JSON line, the
+8. cnn       — the paper's own CNNs, VGG19 (25 units, 143.7 M params)
+               and MobileNetV2 (12 units, 3.5 M) at the published 224 px,
+               batch 1, f32, random weights from a seeded generator, one
+               after the other (no kernel of the port lies on this path:
+               convolutions and pools are cuDNN's, and the phase checks
+               that none of the four kernels launched): every split's
+               edge-then-cloud logits bit-equal to the monolithic
+               forward; ``profile_cnn`` on the card and Eq. 1's optimum at
+               20 and 5 Mbps under the reference's default specs and
+               under ``edge=EDGE_SPEC, cloud=H100``; then
+               examples/serve_pipeline_torch.py's loop (4 fps, 20 -> 5 ->
+               20 Mbps over 24 s of virtual time) under switch_b2,
+               switch_a and pause_resume (reloading a checkpoint written
+               to ``$TMPDIR`` and deleted after), a ``NeukonfigController``
+               on the first pricing whose optimum moves, else switches
+               scripted between the optimum and its neighbour.  Checks at
+               least two switches a stream, the measured downtime order
+               pause_resume > switch_b2 > switch_a, no switch drops under
+               switch_a, ``crosscheck_timeline`` within 2 frames for full
+               outages, and every frame's logits bit-equal to an
+               unswitched pipeline's; prints each stream's downtime,
+               drops, p50/p99 and memory over the initial (Table I)
+               beside the paper's CPU-testbed downtimes.
+9. report    — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -1654,16 +1679,16 @@ SERVE_PROMPTS = (1024, 384, 64)     # admitted before the stream
 SERVE_LATE = 256                    # admitted mid-stream
 # 7a: one decode step a second of stream time; the mid-flight admission
 # before the first switch; switches a quarter second after an arrival and
-# 17 s apart, the stream 17 s past the last (pause_resume's reload of the
-# whole model took 8-14 s a switch on the card: steps must follow each
-# of its outages)
-SERVE_FPS, SERVE_S = 1.0, 56.0
-SERVE_SWITCH_T = (5.25, 22.25, 39.25)
+# 30 s apart, the stream 30 s past the last (pause_resume's reload of the
+# whole model took 8-14 s a switch on the card, and 15.7-17.8 s on a
+# slower host: steps must follow each of its outages)
+SERVE_FPS, SERVE_S = 1.0, 96.0
+SERVE_SWITCH_T = (5.25, 35.25, 65.25)
 SERVE_ADMIT_T = 2.25
 # the slot pool's link: 1 Gbps (the reference's slot-pool tests).  The
 # plan prices a hand-off's transfer there above its re-prefill, so the
-# strategies' streams hand off by recompute; one more switch_b2 stream
-# pins the transfer arm
+# strategies' streams hand off by recompute; a switch_b2 and a switch_a
+# stream more pin the transfer arm
 SERVE_MBPS = 1000.0
 # 7b: examples/serve_pipeline.py:103's trace under a NeukonfigController
 CTL_TRACE = [(0.0, 20.0), (8.0, 5.0), (16.0, 20.0)]
@@ -1771,9 +1796,10 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
     same admissions and tokens: bit-equal before the first hand-off (the
     mid-flight admission among those steps) and after every transfer
     hand-off, within ``LOGIT_RTOL`` of the largest logit after a
-    re-prefill.  The transfer streams' downtimes are printed side by side,
-    not ordered: the host's export of the payload, unpriced, outweighs
-    switch_b2's build there (ROADMAP Queue C).
+    re-prefill.  The transfer streams' downtimes are printed side by side
+    with the margin and each export's wall, not ordered: the exports'
+    spread (a process's first page-locked allocation) can reach half
+    switch_b2's margin there (ROADMAP Queue C item 6).
 
     7b: the same pool under switch_b2 driven by a ``NeukonfigController``
     on ``CTL_TRACE`` with every transfer payload corrupted in transit
@@ -1968,19 +1994,26 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
           f"switches")
     check(runs["pause_resume"]["switch_drops"] > 0,
           "7a: pause_resume's outages dropped nothing")
-    # the transfer arm's downtimes side by side, not ordered (ROADMAP
-    # Queue C): each switch's hand-off wall and its export half
+    # the transfer arm's downtimes side by side, printed and not checked:
+    # switch_b2's margin over switch_a is not always twice the spread of
+    # the export walls (ROADMAP Queue C item 6); each switch's hand-off
+    # wall and its export half beside them
     tr = {k: runs[f"{k} transfer"] for k in ("switch_b2", "switch_a")}
     walls = {k: (r["handoff_wall_s"],
                  [p["handoff_parts"].get("export", {}).get("wall_s")
                   for p in r["switch_probes"]]) for k, r in tr.items()}
     held = tr["switch_b2"]["downtime_s"] > tr["switch_a"]["downtime_s"]
-    out["transfer_order_held"] = held
+    exports = [x for _, ex in walls.values() for x in ex if x is not None]
+    margin = tr["switch_b2"]["downtime_s"] - tr["switch_a"]["downtime_s"]
+    spread = max(exports) - min(exports) if exports else None
+    out.update({"transfer_order_held": held, "transfer_margin_s": margin,
+                "transfer_export_spread_s": spread})
     print(f"[serving] 7a on the transfer arm: measured downtime switch_b2 "
           f"{tr['switch_b2']['downtime_s']:.6f} s beside switch_a "
           f"{tr['switch_a']['downtime_s']:.6f} s; switch_b2 > switch_a "
-          f"{'held' if held else 'did not hold'} (not checked); hand-off "
-          f"and export walls {walls} s")
+          f"{'held' if held else 'did not hold'} (not checked), margin "
+          f"{margin:.6f} s against an export spread of {spread} s; "
+          f"hand-off and export walls {walls} s")
     out["streams"] = runs
 
     # --- 7b: the controller on the bandwidth trace, corrupted transfers --
@@ -2066,6 +2099,294 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
         print(f"[serving] 7b probe: {pr}")
     free_memory()
     print(f"[serving] phase 7 launches {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's own CNNs at 224 px (no kernel of the port runs here)
+# ---------------------------------------------------------------------------
+
+CNN_ARCHS = ("vgg19", "mobilenetv2")
+CNN_STRATEGIES = ("switch_b2", "switch_a", "pause_resume")
+# examples/serve_pipeline_torch.py's loop: the compressed trace, 4 fps
+CNN_TRACE = [(0.0, 20.0), (8.0, 5.0), (16.0, 20.0)]
+CNN_FPS, CNN_S = 4.0, 24.0
+CNN_FRAMES = 8                      # distinct frames, cycled
+CNN_REPS = 5                        # profile_cnn's timed calls a unit
+# the paper's downtimes, measured on its CPU testbed (VGG19 and
+# MobileNetV2): printed beside the card's, not a target
+PAPER_DOWNTIME = {"pause_resume": "6 s", "switch_b2": "0.6 s",
+                  "switch_a": "< 1 ms"}
+
+
+@contextlib.contextmanager
+def recorded_frames(seen: list, index: dict):
+    """Append ``(frame index, logits)`` to ``seen`` for every
+    ``EdgeCloudPipeline.process`` call while the context is open (the
+    stream's frames and the pool's warm-up forwards, on any thread)."""
+    from repro_torch.core.pipeline import EdgeCloudPipeline
+    real = EdgeCloudPipeline.process
+
+    def rec(self, inputs, **kw):
+        out = real(self, inputs, **kw)
+        seen.append((index[id(inputs["image"])], out[0]))
+        return out
+    EdgeCloudPipeline.process = rec
+    try:
+        yield seen
+    finally:
+        EdgeCloudPipeline.process = real
+
+
+def split_decisions(profile) -> dict:
+    """Eq. 1's optimum at each of the trace's bandwidths: split, boundary
+    bytes and the total it prices."""
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.core.partitioner import optimal_split
+    out = {}
+    for bw in sorted({bw for _, bw in CNN_TRACE}, reverse=True):
+        best = optimal_split(profile, NetworkModel(bw))
+        out[bw] = {"split": best.split, "unit": profile.units[best.split].name,
+                   "boundary_bytes": profile.units[best.split].boundary_bytes,
+                   "total_s": best.total}
+    return out
+
+
+def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
+    """``arch`` (vgg19, mobilenetv2) at the published 224 px, batch 1,
+    f32 (TF32 off), random weights from a generator seeded with ``seed``:
+
+    a. every split's edge-then-cloud logits bit-equal to the monolithic
+       forward's;
+    b. ``profile_cnn`` on the card (each unit's time and boundary bytes)
+       and Eq. 1's optimum at 20 and 5 Mbps under the reference's default
+       specs and under ``edge=EDGE_SPEC, cloud=H100``;
+    c. examples/serve_pipeline_torch.py's loop on the card: ``CNN_FPS``
+       frames a second over ``CNN_TRACE`` for ``CNN_S`` s of virtual time
+       under switch_b2, switch_a and pause_resume (reloading a checkpoint
+       this phase writes to ``$TMPDIR`` and deletes), a
+       ``NeukonfigController`` on the first pricing whose optimum moves,
+       else switches scripted at the trace's change points between the
+       optimum and its neighbour.  Checks at least two switches a stream,
+       the measured downtime order pause_resume > switch_b2 > switch_a, no
+       switch drops under switch_a, ``crosscheck_timeline`` within 2 frames
+       for full outages, every frame's logits bit-equal to an unswitched
+       pipeline's for the same frame, and no launch of the port's kernels;
+    d. prints each stream's downtime, drops, p50/p99 and Table I's memory
+       (total over initial), beside the paper's CPU-testbed downtimes."""
+    import tempfile
+
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import NeukonfigController
+    from repro_torch.core.downtime import crosscheck_timeline
+    from repro_torch.core.hardware import EDGE_SPEC, H100
+    from repro_torch.core.network import BandwidthTrace
+    from repro_torch.core.pipeline import EdgeCloudPipeline
+    from repro_torch.core.profiler import profile_cnn
+    from repro_torch.core.stages import CnnStageRunner, param_bytes
+    from repro_torch.core.switching import PipelineManager
+    from repro_torch.serving import ServingEngine, VirtualClock
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    runner = CnnStageRunner(cfg, generator=gen, device="cuda")
+    params, n = runner.params, runner.num_units
+    hw = cfg.input_hw
+    frames = [torch.randn((1, hw, hw, cfg.input_ch), generator=gen,
+                          device="cuda") for _ in range(CNN_FRAMES)]
+    index = {id(f): i for i, f in enumerate(frames)}
+    out = {"arch": arch, "num_units": n, "input_hw": hw,
+           "param_bytes": param_bytes(params)}
+    print(f"[cnn] {arch}: {n} units, {out['param_bytes']} B of f32 "
+          f"weights, {hw} px, batch 1; cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, cudnn.deterministic "
+          f"{torch.backends.cudnn.deterministic}")
+
+    # --- a. every split against the monolithic forward ---------------------
+    gclog.label = f"{arch} phase 8a"
+    img = {"image": frames[0]}
+    mono = runner.stage_executable(0, n, params, img, fresh=True)(
+        params, img)["logits"]
+    check(tuple(mono.shape) == (1, cfg.num_classes)
+          and bool(torch.isfinite(mono).all()),
+          f"{arch}: monolithic logits {tuple(mono.shape)}, finite "
+          f"{bool(torch.isfinite(mono).all())}")
+
+    diffs = []
+    for split in range(n - 1):
+        mid = runner.stage_executable(0, split + 1, params, img)(params, img)
+        got = runner.stage_executable(split + 1, n, params, mid)(
+            params, mid)["logits"]
+        diffs.append(max_diff(got, mono))
+    # cuDNN's default algorithms (no cudnn.deterministic) give this
+    check(not any(diffs), f"{arch}: split logits differ from the "
+                          f"monolithic forward: {diffs}")
+    print(f"[cnn] {arch} 8a: all {n - 1} splits bit-equal to the "
+          f"monolithic forward (max |logit| "
+          f"{mono.abs().max().item():.4e})")
+
+    # --- b. the measured profile, two pricings ---------------------------------
+    gclog.label = f"{arch} phase 8b"
+    pricings = {"default": {}, "h100": {"edge": EDGE_SPEC, "cloud": H100}}
+    profiles = {name: profile_cnn(cfg, params, runner.units, runner.shapes,
+                                  reps=CNN_REPS, **kw)
+                for name, kw in pricings.items()}
+    out["profile"] = [{"unit": u.name, "card_us": u.t_cloud * 1e6,
+                       "card_us_h100_run": h.t_cloud * 1e6,
+                       "boundary_bytes": u.boundary_bytes}
+                      for u, h in zip(profiles["default"].units,
+                                      profiles["h100"].units)]
+    print(f"[cnn] {arch} 8b profile_cnn on the card (unit, µs, µs in the "
+          f"second run, boundary B): "
+          + "; ".join(f"{r['unit']} {r['card_us']:.1f} "
+                      f"{r['card_us_h100_run']:.1f} {r['boundary_bytes']}"
+                      for r in out["profile"]))
+    out["optima"] = {name: split_decisions(p)
+                     for name, p in profiles.items()}
+    for name, dec in out["optima"].items():
+        moved = len({d["split"] for d in dec.values()}) > 1
+        print(f"[cnn] {arch} 8b Eq. 1 under the {name} pricing "
+              f"(edge {'4x the card' if name == 'default' else 'EDGE_SPEC, cloud H100'}): "
+              + "; ".join(f"{bw:g} Mbps -> split {d['split']} after "
+                          f"{d['unit']} ({d['boundary_bytes']} B, "
+                          f"{d['total_s'] * 1e3:.3f} ms)"
+                          for bw, d in dec.items())
+              + f"; {'moves' if moved else 'does not move'}")
+    pricing = next((name for name, dec in out["optima"].items()
+                    if len({d["split"] for d in dec.values()}) > 1), None)
+    profile = profiles[pricing or "default"]
+    fast = out["optima"][pricing or "default"][CNN_TRACE[0][1]]["split"]
+    scripted = None
+    if pricing is None:
+        scripted = (fast, fast + 1 if fast < n - 2 else fast - 1)
+    out["live"] = {"pricing": pricing, "scripted": scripted}
+    print(f"[cnn] {arch} 8c: "
+          + (f"a NeukonfigController on the {pricing} pricing"
+             if pricing else f"no pricing moves the optimum: switches "
+             f"scripted {scripted[0]} <-> {scripted[1]} at the trace's "
+             f"change points"))
+
+    # --- c. the live stream ------------------------------------------------------
+    times = [i / CNN_FPS for i in range(int(CNN_S * CNN_FPS))]
+    source = [(t, {"image": frames[i % CNN_FRAMES]})
+              for i, t in enumerate(times)]
+    twin = EdgeCloudPipeline(CnnStageRunner(cfg, params, device="cuda"),
+                             fast, BandwidthTrace(steps=CNN_TRACE).at(0.0))
+    twin.build({"image": frames[0]}, cold=False)
+    want = [twin.process({"image": f})[0] for f in frames]
+    twin.close()
+    del twin
+    fd, ckpt = tempfile.mkstemp(suffix=".npz")
+    os.close(fd)
+    streams = {}
+    try:
+        sw = time.perf_counter()
+        out["checkpoint_bytes"] = save_pytree(params, ckpt)
+        out["checkpoint_write_s"] = time.perf_counter() - sw
+        for strategy in CNN_STRATEGIES:
+            gclog.label = f"{arch} phase 8c {strategy}"
+            trace = BandwidthTrace(steps=CNN_TRACE)
+            mgr = PipelineManager(
+                CnnStageRunner(cfg, params, device="cuda"), split=fast,
+                net=trace.at(0.0), sample_inputs={"image": frames[0]},
+                warm_standbys=True, checkpoint_path=ckpt)
+            mgr.pool.executor.submit(lambda: None).wait()
+            ctl = None
+            if scripted is None:
+                ctl = NeukonfigController(mgr, profile, trace,
+                                          strategy=strategy)
+                eng = ServingEngine(mgr, clock=VirtualClock(),
+                                    controller=ctl)
+            else:
+                mgr.get_strategy(strategy).prepare(
+                    mgr.pool, candidate_splits=scripted[::-1])
+                eng = ServingEngine(mgr, clock=VirtualClock())
+                for i, (t, bw) in enumerate(CNN_TRACE[1:]):
+                    eng.schedule_switch(t, strategy, scripted[(i + 1) % 2],
+                                        bandwidth_mbps=bw)
+            seen = []
+            sw = time.perf_counter()
+            with recorded_frames(seen, index):
+                tl = eng.run(iter(source), duration=CNN_S)
+                mgr.drain()
+            wall = time.perf_counter() - sw
+            mem = mgr.memory_report()
+            shut(mgr)
+            summ = tl.summary()
+            xc = [x for x in crosscheck_timeline(tl, fps=CNN_FPS,
+                                                 service_time=0.0)
+                  if x["full_outage"]]
+            worst = max((max_diff(lg, want[i]) for i, lg in seen),
+                        default=None)
+            row = {"downtime_s": tl.downtime(),
+                   "switch_drops": tl.switch_drops(wake=1.0),
+                   "arrived": summ["arrived"], "dropped": summ["dropped"],
+                   "p50_ms": summ["p50_ms"], "p99_ms": summ["p99_ms"],
+                   "windows": [[w.t_start, w.duration, w.old_split,
+                                w.new_split] for w in tl.windows],
+                   "memory_x": mem["total_bytes"] / max(
+                       mem["initial_bytes"], 1),
+                   "memory": mem, "forwards_checked": len(seen),
+                   "max_logit_diff": worst,
+                   "crosscheck": [[x["measured_dropped"],
+                                   x["predicted_dropped"]] for x in xc],
+                   "wall_s": wall}
+            streams[strategy] = row
+            print(f"[cnn] {arch} 8c {strategy}: measured downtime "
+                  f"{row['downtime_s']:.6f} s over {len(tl.windows)} "
+                  f"switches {row['windows']} (t, s, split -> split); "
+                  f"switch drops {row['switch_drops']}, dropped "
+                  f"{row['dropped']} of {row['arrived']}; p50 "
+                  f"{row['p50_ms']} ms, p99 {row['p99_ms']} ms; memory "
+                  f"{row['memory_x']:.2f}x of the initial "
+                  f"{mem['initial_bytes']} B; {len(seen)} forwards' logits "
+                  f"against the unswitched twin, max |diff| {worst}; "
+                  f"outage drops measured/predicted {row['crosscheck']}; "
+                  f"{wall:.1f} s")
+            check(len(tl.windows) >= 2, f"{arch} {strategy}: "
+                  f"{len(tl.windows)} switches, want at least 2")
+            check(seen and worst == 0.0,
+                  f"{arch} {strategy}: frame logits differ from the "
+                  f"unswitched pipeline's by {worst}")
+            check(all(abs(m - p) <= 2 for m, p in row["crosscheck"]),
+                  f"{arch} {strategy}: outage drops measured/predicted "
+                  f"{row['crosscheck']}")
+            del mgr, eng, ctl, tl, seen
+            free_memory()
+    finally:
+        os.remove(ckpt)
+    d = {k: streams[k]["downtime_s"] for k in CNN_STRATEGIES}
+    check(d["pause_resume"] > d["switch_b2"] > d["switch_a"],
+          f"{arch}: measured downtime order pause_resume > switch_b2 > "
+          f"switch_a violated: {d}")
+    check(streams["switch_a"]["switch_drops"] == 0,
+          f"{arch}: switch_a dropped {streams['switch_a']['switch_drops']} "
+          f"at its switches")
+    launches = K.read()
+    check(not any(launches.values()),
+          f"{arch}: the CNN path launched the port's kernels {launches}")
+    # --- d. beside the paper ----------------------------------------------------
+    print(f"[cnn] {arch} 8d measured stream downtime "
+          + ", ".join(f"{k} {d[k]:.6f} s ({streams[k]['switch_drops']} "
+                      f"switch drops, memory {streams[k]['memory_x']:.2f}x)"
+                      for k in CNN_STRATEGIES)
+          + "; the paper's CPU testbed, not a target: "
+          + ", ".join(f"{k} {v}" for k, v in PAPER_DOWNTIME.items()))
+    out.update({"streams": streams, "launches": launches})
+    del runner, params, frames, img, source, want, mono
+    peak = torch.cuda.max_memory_allocated()
+    free_memory()
+    left = torch.cuda.memory_allocated()
+    check(left <= 2 ** 30, f"{arch} left {left} B on the card after its "
+          f"phase")
+    out.update({"peak_device_bytes": peak, "left_device_bytes": left,
+                "wall_s": time.perf_counter() - t0})
+    print(f"[cnn] {arch}: phase 8 took {out['wall_s']:.1f} s; peak device "
+          f"memory {peak} B; left after freeing {left} B")
     return out
 
 
@@ -2216,16 +2537,18 @@ def main() -> None:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         check(row["launches"] > 0, f"{name} never launched on a main path")
+    # phase 8: the paper's own CNNs at 224 px
+    cnns = [phase_cnn(K, arch, args.seed, gclog) for arch in CNN_ARCHS]
     check("jax" not in sys.modules, "the port imported jax")
 
-    # phase 8: report
+    # phase 9: report
     wall = time.perf_counter() - t_start
     print(f"[done] the whole script took {wall:.1f} s; garbage "
           f"collections {gclog.summary()}; flash_decode device-time traces "
           f"{DECODE_TRACES}")
     print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
                       "wall_s": wall, "decode_traces": DECODE_TRACES,
-                      "models": models}))
+                      "models": models, "cnn": cnns}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,8 @@ def save_pytree(tree, path: str) -> int:
 def load_pytree(path: str, like=None, device=None):
     """Reload as tensors.  Without ``like``: the flat dict, on ``device``
     (CPU by default).  With ``like``: its nested structure, each leaf on
-    the device and in the dtype of its counterpart in ``like``."""
+    the device, in the dtype and in the memory layout (strides: a CNN's
+    conv weights, ``models/cnn.py``) of its counterpart in ``like``."""
     with np.load(path) as data:
         bf16 = set(data[BF16_KEYS].tolist()) if BF16_KEYS in data.files \
             else set()
@@ -84,4 +85,9 @@ def _rebuild(sub, flat, prefix=""):
     if isinstance(sub, (list, tuple)):
         return type(sub)(_rebuild(v, flat, f"{prefix}{i}/")
                          for i, v in enumerate(sub))
-    return flat[prefix[:-1]].to(device=sub.device, dtype=sub.dtype)
+    src = flat[prefix[:-1]]
+    if sub.is_contiguous():
+        return src.to(device=sub.device, dtype=sub.dtype)
+    out = torch.empty_strided(sub.shape, sub.stride(), dtype=sub.dtype,
+                              device=sub.device)
+    return out.copy_(src)

@@ -1,25 +1,32 @@
 """Registry mapping --arch ids to the configs the port runs.
 
 Only the architectures whose slice has been ported are listed; the others
-arrive with their slices (see ROADMAP.md, Queue A).
+arrive with their slices (see ROADMAP.md, Queue A).  The paper's own CNNs
+(``PAPER_ARCHS``) give a ``CNNConfig``, every other id an ``ArchConfig``.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Union
 
-from repro_torch.configs.base import ArchConfig, INPUT_SHAPES, InputShape
+from repro_torch.configs.base import (ArchConfig, CNNConfig, INPUT_SHAPES,
+                                      InputShape)
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "zamba2-7b": "zamba2_7b",
+    # the paper's own models (Figs. 2-3)
+    "vgg19": "vgg19",
+    "mobilenetv2": "mobilenetv2",
 }
 
+PAPER_ARCHS = ("vgg19", "mobilenetv2")
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k not in PAPER_ARCHS)
 ALL_ARCHS = tuple(_MODULES)
 
 
-def get_config(name: str) -> ArchConfig:
+def get_config(name: str) -> Union[ArchConfig, CNNConfig]:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port runs: "
                        f"{sorted(_MODULES)}")

@@ -1,11 +1,11 @@
 """Per-layer profiling: the data behind Eq. 1 (T_inf = T_e + T_t + T_c).
 
-The analytic part of ``repro/core/profiler.py``: FLOPs/spec estimation
-(``profile_transformer``) — the paper's "estimation-based" path [18] — and
-the rescaling of that profile to MEASURED decode walls
-(``calibrate_decode``).  The measured CNN profile (``profile_cnn``) and the
-per-mesh calibration (``calibrate_mesh``) arrive with the CNN and sharded
-slices, and with the latter the per-mesh latency model.
+The counterpart of ``repro/core/profiler.py``: the measured CNN profile
+(``profile_cnn``: each unit timed on its device, synchronised), FLOPs/spec
+estimation (``profile_transformer``) — the paper's "estimation-based"
+path [18] — and the rescaling of that profile to MEASURED decode walls
+(``calibrate_decode``).  The per-mesh calibration (``calibrate_mesh``)
+arrives with the sharded slice, and with it the per-mesh latency model.
 """
 from __future__ import annotations
 
@@ -13,10 +13,14 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, CNNConfig
 from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC, DeviceSpec
 from repro_torch.core.network import NetworkModel
+from repro_torch.core.stages import tree_leaves
+from repro_torch.core.timing import Stopwatch
+from repro_torch.device import synchronize
 
 @dataclass
 class UnitProfile:
@@ -81,6 +85,50 @@ class ModelProfile:
     def total_latency(self, split: int, net: NetworkModel,
                       mesh_shape=None) -> float:
         return sum(self.latency(split, net, mesh_shape))
+
+
+# ---------------------------------------------------------------------------
+# measured profiling (CNNs)
+# ---------------------------------------------------------------------------
+
+def _time_fn(fn, *args, device: torch.device, reps: int = 3) -> float:
+    """Mean wall of ``fn(*args)`` over ``reps`` calls after two warm-up
+    calls, the device synchronised before and after (JAX blocks until
+    ready).  The reference warms up once, paying its compile; an eager
+    first call pays one-time set-up instead (oneDNN primitives on the CPU,
+    up to the second call; cuDNN's heuristics on the card)."""
+    for _ in range(2):
+        fn(*args)
+    synchronize(device)
+    sw = Stopwatch()
+    for _ in range(reps):
+        fn(*args)
+    synchronize(device)
+    return sw.elapsed() / reps
+
+
+def profile_cnn(cfg: CNNConfig, params, units, shapes, *, batch: int = 1,
+                edge: DeviceSpec = EDGE_SPEC, cloud: DeviceSpec = CLOUD_SPEC,
+                dtype=torch.float32, reps: int = 3) -> ModelProfile:
+    """Measured per-unit times on this host, scaled to edge/cloud specs.
+
+    The host measurement fixes the *relative* per-layer cost; the edge/cloud
+    specs set absolute scale (host flops assumed = cloud spec, the edge
+    slower by ``cloud.flops / edge.flops``).  Units run on the params'
+    device (the runner's)."""
+    device = tree_leaves(params)[0].device
+    x = torch.zeros((batch, cfg.input_hw, cfg.input_hw, cfg.input_ch),
+                    dtype=dtype, device=device)
+    out_profiles = []
+    scale_edge = cloud.flops / edge.flops
+    with torch.no_grad():
+        for i, (name, fn) in enumerate(units):
+            t = _time_fn(fn, params[i], x, device=device, reps=reps)
+            bbytes = int(np.prod(shapes[i])) * batch \
+                * np.dtype(np.float32).itemsize
+            out_profiles.append(UnitProfile(name, t * scale_edge, t, bbytes))
+            x = fn(params[i], x)
+    return ModelProfile(cfg.name, out_profiles)
 
 
 # ---------------------------------------------------------------------------

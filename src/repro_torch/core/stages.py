@@ -18,19 +18,25 @@ A warm build caches the callable per ``(lo, hi, fingerprint)`` and a hit
 returns it; ``fresh=True`` builds anew, warms up, and caches nothing (the
 paper's "new container").  An eager callable serves any input shape, so
 the reference's retrace fallback for unseen shapes has no counterpart.
-``CnnStageRunner`` arrives with the CNN slice (ROADMAP Queue A).
+
+``CnnStageRunner`` runs the paper's own CNNs (``models/cnn.py``) behind
+the same interface: unit i is a conv, pool, block, flatten or dense
+layer; ``{"image"}`` goes in, NHWC ``{"h"}`` crosses each boundary and
+``{"logits"}`` comes out; the boundary bytes VARY with depth, so the
+optimal split moves with the bandwidth.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, CNNConfig
 from repro_torch.core.concurrency import (RANK_STAGE_CACHE, guarded_by,
                                           make_lock)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import cnn as CNN
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
@@ -113,8 +119,46 @@ def to_device(tree, device: torch.device):
     return tree_map(lambda t: torch.as_tensor(t, device=device), tree)
 
 
-@guarded_by("_cache_lock", "_stage_cache", rank=RANK_STAGE_CACHE)
-class StageRunner:
+@guarded_by("_cache_lock", "_stage_cache", rank=RANK_STAGE_CACHE,
+            init_methods=("_init_stage_cache",))
+class _BuiltStageCache:
+    """Built stages shared by both runners: a subclass gives ``device``
+    and ``_run(params, state, lo, hi)``."""
+
+    def _init_stage_cache(self) -> None:
+        self._stage_cache: Dict[Tuple, Any] = {}
+        self._cache_lock = make_lock("stage-cache", RANK_STAGE_CACHE)
+
+    def run_units(self, state, lo: int, hi: int):
+        return self._run(self.params, state, lo, hi)
+
+    def stage_executable(self, lo: int, hi: int, params, state, *,
+                         fresh: bool = False):
+        """Built callable ``fn(params, state)`` for units [lo, hi), for a
+        ``state`` shaped like ``state`` (tensors or ``TensorSpec``s; never
+        read, only their shapes).  A miss (or ``fresh=True``) makes the
+        callable and runs one synchronised warm-up forward on scratch state
+        shaped like ``state``; only a warm (``fresh=False``) build is
+        cached, per ``(lo, hi, fingerprint)``."""
+        specs = abstractify(state)
+        key = (lo, hi) + aval_fingerprint(specs)
+        if not fresh:
+            with self._cache_lock:
+                hit = self._stage_cache.get(key)
+            if hit is not None:
+                return hit
+
+        def fn(params, state):
+            return self._run(params, state, lo, hi)
+        fn(params, materialize(specs))           # warm-up on scratch state
+        synchronize(self.device)
+        if not fresh:
+            with self._cache_lock:
+                fn = self._stage_cache.setdefault(key, fn)
+        return fn
+
+
+class StageRunner(_BuiltStageCache):
     """Executes unit ranges [lo, hi) of a dense, ssm or hybrid model for
     full-sequence inference.
 
@@ -133,8 +177,7 @@ class StageRunner:
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.attn_impl = attn_impl
-        self._stage_cache: Dict[Tuple, Any] = {}
-        self._cache_lock = make_lock("stage-cache", RANK_STAGE_CACHE)
+        self._init_stage_cache()
 
     # -- unit layout --------------------------------------------------
     @property
@@ -186,9 +229,6 @@ class StageRunner:
             state = self._apply_unit(params, state, i)
         return state
 
-    def run_units(self, state, lo: int, hi: int):
-        return self._run(self.params, state, lo, hi)
-
     # -- built stages ----------------------------------------------------
     def stage_out_avals(self, lo: int, hi: int, params, state):
         """Specs of the output of units [lo, hi) for inputs shaped like
@@ -206,32 +246,59 @@ class StageRunner:
                                          torch.float32, h.device)}
         return {"h": h}
 
-    def stage_executable(self, lo: int, hi: int, params, state, *,
-                         fresh: bool = False):
-        """Built callable ``fn(params, state)`` for units [lo, hi), for a
-        ``state`` shaped like ``state`` (tensors or ``TensorSpec``s; never
-        read, only their shapes).  A miss (or ``fresh=True``) makes the
-        callable and runs one synchronised warm-up forward on scratch state
-        shaped like ``state``; only a warm (``fresh=False``) build is
-        cached, per ``(lo, hi, fingerprint)``."""
-        specs = abstractify(state)
-        key = (lo, hi) + aval_fingerprint(specs)
-        if not fresh:
-            with self._cache_lock:
-                hit = self._stage_cache.get(key)
-            if hit is not None:
-                return hit
-
-        def fn(params, state):
-            return self._run(params, state, lo, hi)
-        fn(params, materialize(specs))           # warm-up on scratch state
-        synchronize(self.device)
-        if not fresh:
-            with self._cache_lock:
-                fn = self._stage_cache.setdefault(key, fn)
-        return fn
-
     def boundary_bytes(self, split: int, batch: int, seq: int,
                        act_bytes: int = 4) -> int:
         """Bytes crossing the link for a split after unit ``split``."""
         return batch * seq * self.cfg.d_model * act_bytes
+
+
+class CnnStageRunner(_BuiltStageCache):
+    """StageRunner-compatible executor for the paper's own CNN models
+    (the video-analytics workload, Figs. 2-3): unit i = conv, pool, block,
+    flatten or dense layer; the boundary activations VARY with depth, so
+    the optimal split really moves with the bandwidth.
+
+    ``params`` (the reference's structure and layout, e.g.
+    ``params.from_numpy`` of ``repro.models.cnn.build_cnn``'s) or, without
+    them, weights drawn from ``generator`` (``models.cnn.build_cnn``) are
+    placed on ``device`` once, conv weights in the layout ``F.conv2d``
+    takes (``models.cnn.place_params``).  ``device`` defaults to the card
+    and raises without one unless the caller asks for ``"cpu"``.  Like
+    the reference's runner it has no ``edge_param_bytes``."""
+
+    def __init__(self, cfg: CNNConfig, params=None, *,
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if params is None:
+            params, self.units, self.shapes = CNN.build_cnn(
+                cfg, generator, device=self.device)
+        else:
+            self.units, self.shapes, _ = CNN.cnn_units(cfg)
+        self.params = CNN.place_params(params, self.device)
+        self._init_stage_cache()
+
+    @property
+    def num_units(self) -> int:
+        return len(self.units)
+
+    def _run(self, params, state, lo: int, hi: int):
+        x = state["h"] if "h" in state else state["image"]
+        x = CNN.run_range(params, self.units, x, lo, hi)
+        return {"logits": x} if hi == self.num_units else {"h": x}
+
+    def stage_out_avals(self, lo: int, hi: int, params, state):
+        """Specs of the output of units [lo, hi) for inputs shaped like
+        ``state``: ``shapes[hi - 1]`` at the input's batch (nothing runs;
+        the reference traces with ``eval_shape``)."""
+        spec = abstractify(state)
+        x = spec["h"] if "h" in spec else spec["image"]
+        out = TensorSpec(x.shape[:1] + tuple(self.shapes[hi - 1][1:]),
+                         x.dtype, x.device)
+        return {"logits": out} if hi == self.num_units else {"h": out}
+
+    def boundary_bytes(self, split: int, batch: int, seq: int = 1,
+                       act_bytes: int = 4) -> int:
+        """Bytes crossing the link for a split after unit ``split``."""
+        return CNN.boundary_bytes(self.shapes, split, batch, act_bytes)

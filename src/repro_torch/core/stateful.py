@@ -51,12 +51,14 @@ Where the port differs from the reference, and why:
 * **No rolled path.**  The reference's ``rolled`` ranges (``_segments``,
   ``lax.scan`` over a span) shrink a compile that eager PyTorch does not
   have; every range here is one Python loop over its units.
-* **Payloads** keep the reference's ``(dtype str, shape, bytes)`` entries
+* **Payloads** keep the reference's ``(dtype str, shape, buffer)`` entries
   and ``(epoch, pos, crc32)`` envelope, so the two packages' hand-offs
   interchange; bf16 travels as its raw 16-bit pattern tagged
   ``"bfloat16"``, which is also what the reference's bytes are.  On the
   card a payload's tensors cross to and from the host through
-  page-locked memory (``_to_payload``, ``_from_payload``).
+  page-locked memory: an export's buffer is that memory itself, read-only
+  (``HostBuffer``), and an import copies it to the card in one DMA
+  (``_from_payload``); nothing is copied into fresh pageable pages.
 """
 from __future__ import annotations
 
@@ -136,35 +138,77 @@ def payload_checksum(payload: Dict[Any, tuple]) -> int:
     return crc
 
 
-def _to_payload(t: torch.Tensor) -> Tuple[str, np.ndarray]:
-    """A tensor as (dtype str, host array); bf16 as its 16-bit pattern.
-
-    A CUDA tensor lands in page-locked host memory (PyTorch's caching host
-    allocator reuses the blocks): one DMA, where a copy into pageable
-    memory is staged through a CUDA bounce buffer (PERF.md: the
-    hand-off's export and import halves).  The array views that memory
-    until the caller's ``tobytes()``."""
-    t = t.detach()
-    if t.device.type == "cuda":
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        t = host.copy_(t)
-    else:
-        t = t.contiguous()
+def _host_array(t: torch.Tensor) -> Tuple[str, np.ndarray]:
+    """A host tensor as (dtype str, numpy view of its memory); bf16 as its
+    16-bit pattern."""
     if t.dtype == torch.bfloat16:
         return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
     a = t.numpy()
     return str(a.dtype), a
 
 
-def _from_payload(dtype: str, shape, buf: bytes,
-                  device=None) -> torch.Tensor:
-    """An entry's bytes as a tensor on ``device`` (the CPU by default);
+class HostBuffer:
+    """A host tensor's bytes, read-only through the buffer protocol.
+
+    The buffer of an exported hand-off entry: ``zlib.crc32``,
+    ``np.frombuffer``, ``bytes()``, ``len()`` and slicing read it as they
+    read ``bytes``, so the reference's ``validate_payload`` and
+    ``import_layers`` take it, but nothing copies it into fresh pageable
+    pages.  It keeps ``tensor`` (page-locked memory from PyTorch's caching
+    host allocator, for a CUDA source) alive until the payload is
+    dropped, and ``_from_payload`` copies that tensor to the card
+    straight."""
+
+    __slots__ = ("tensor", "dtype", "_view")
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self.dtype, arr = _host_array(tensor)
+        flat = arr.reshape(-1).view(np.uint8)
+        flat.flags.writeable = False
+        self._view = memoryview(flat)
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return self._view
+
+    def __len__(self) -> int:
+        return self._view.nbytes
+
+    def __getitem__(self, i):
+        return self._view[i]
+
+
+def _payload_entry(t: torch.Tensor) -> Tuple[str, Tuple[int, ...],
+                                               HostBuffer]:
+    """A tensor as an export's ``(dtype str, shape, buffer)`` entry, in
+    host memory of its own: page-locked for a CUDA tensor (one DMA), a
+    copy for a CPU one (the payload must not alias live state)."""
+    t = t.detach()
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+    else:
+        host = t.clone(memory_format=torch.contiguous_format)
+    buf = HostBuffer(host)
+    return buf.dtype, tuple(host.shape), buf
+
+
+def _from_payload(dtype: str, shape, buf, device=None) -> torch.Tensor:
+    """An entry's buffer as a tensor on ``device`` (the CPU by default);
     raises ``ValueError``/``TypeError`` on a short buffer or a bad dtype.
-    For a CUDA ``device`` the bytes are copied once, into page-locked host
-    memory, and DMA'd from there (see ``_to_payload``)."""
+    An export's ``HostBuffer`` that still matches its entry is copied to
+    ``device`` straight (one DMA from page-locked memory to the card);
+    other bytes are copied once into page-locked host memory and DMA'd
+    from there."""
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if isinstance(buf, HostBuffer) and buf.dtype == dtype \
+            and tuple(buf.tensor.shape) == tuple(shape):
+        if cuda:
+            return buf.tensor.to(device, non_blocking=True)
+        return buf.tensor.clone()
     bf16 = dtype == "bfloat16"
     a = np.frombuffer(buf, dtype=np.uint16 if bf16 else dtype).reshape(shape)
-    if device is not None and torch.device(device).type == "cuda":
+    if cuda:
         host = torch.empty(a.shape, pin_memory=True,
                            dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
         host.numpy()[...] = a
@@ -841,9 +885,8 @@ class DecodeSession:
                     t = self.cache[k]
                     if _is_kv(k):                # KV: valid region only
                         t = t[:, :, :self.pos]
-                    dtype, arr = _to_payload(t)
-                    buf = arr.tobytes()
-                    payload[k] = (dtype, arr.shape, buf)
+                    dtype, shape, buf = _payload_entry(t)
+                    payload[k] = (dtype, shape, buf)
                     nbytes += len(buf)
             payload[HANDOFF_META_KEY] = (self.epoch, self.pos,
                                          payload_checksum(payload))

@@ -38,8 +38,11 @@ boundary activations and logits are written into the device buffers in
 place for every live slot at once — the reference commits them slot by
 slot into host arrays.  The host keeps each slot's integer ``pos`` for
 bookkeeping.  Parked sessions and hand-off payloads use the port's
-``(dtype str, shape, bytes)`` entries (``core.stateful._to_payload``), so
-bf16 state travels as its 16-bit pattern.
+``(dtype str, shape, buffer)`` entries, so bf16 state travels as its
+16-bit pattern: a hand-off's buffer is the page-locked host copy itself
+(``core.stateful.HostBuffer``, read-only, alive until the import has
+consumed it), a parked session's is ``bytes`` of its own, which outlive
+the pool's host blocks.
 
 Locking: slot metadata (``_slots``/``_parked``) is guarded by a rank-47
 lock — above the stateful runner's rank-42 lock, so the manager must
@@ -66,8 +69,9 @@ from repro_torch.core.network import NetworkModel
 from repro_torch.core.state_handoff import per_layer_state_bytes
 from repro_torch.core.stateful import (HANDOFF_META_KEY, HandoffCorrupted,
                                        StatefulStageRunner, _as_tokens,
-                                       _from_payload, _is_kv, _to_payload,
-                                       _unit_state_keys, payload_checksum,
+                                       _from_payload, _is_kv,
+                                       _payload_entry, _unit_state_keys,
+                                       payload_checksum,
                                        unit_index_of_split)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import transformer as T
@@ -335,8 +339,10 @@ class SessionManager:
     def evict(self, sid: str) -> None:
         """Park ``sid``'s state (freeing its slot) for a later
         ``readmit``.  The parked payload uses the same serialized
-        ``(dtype, shape, bytes)`` entries as ``export_layers``, so the
-        round trip exercises the hand-off representation."""
+        ``(dtype, shape, buffer)`` entries as ``export_layers``, so the
+        round trip exercises the hand-off representation; its buffers are
+        ``bytes`` of its own (a parked session outlives the host blocks
+        a hand-off's buffers hold)."""
         with self._lock:
             self._park(self._slot_index(sid))
             self._sync_slots()
@@ -355,8 +361,8 @@ class SessionManager:
                 t = self.cache[k][j]
                 if _is_kv(k):                    # row KV: (KH, S, hd)
                     t = t[:, :slot.pos]
-                dtype, arr = _to_payload(t)
-                state[k] = (dtype, arr.shape, arr.tobytes())
+                dtype, shape, buf = _payload_entry(t)
+                state[k] = (dtype, shape, bytes(buf))
         self._parked[slot.sid] = {
             "state": state,
             # host copies (on a CPU pool ``.cpu()`` alone would alias the
@@ -441,9 +447,8 @@ class SessionManager:
                     t = self.cache[k]
                     if _is_kv(k):
                         t = t[:, :, :pos]
-                    dtype, arr = _to_payload(t)
-                    buf = arr.tobytes()
-                    payload[k] = (dtype, arr.shape, buf)
+                    dtype, shape, buf = _payload_entry(t)
+                    payload[k] = (dtype, shape, buf)
                     nbytes += len(buf)
             payload[HANDOFF_META_KEY] = (self.epoch, pos,
                                          payload_checksum(payload))

@@ -320,6 +320,46 @@ def test_stateless_pipeline_on_prefill_kernel(cuda):
     mgr.close()
 
 
+def test_slot_pool_transfer_payload_round_trips_on_card(cuda):
+    """A 4-slot pool's transfer payload on the card: every buffer is the
+    page-locked host copy itself (read-only), its checksum is the
+    envelope's, and the import lands the same state bit-exactly."""
+    import zlib
+
+    from repro_torch.core.stateful import (HANDOFF_META_KEY, HostBuffer,
+                                           payload_checksum)
+    from repro_torch.serving import make_session_manager
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              num_layers=2)
+    mgr, sm = make_session_manager(cfg, split=1, net=NetworkModel(1000.0),
+                                   num_slots=4, max_seq=64, device=cuda,
+                                   force_mode="transfer")
+    gen = torch.Generator().manual_seed(0)
+    for i, n in enumerate((7, 3, 12)):
+        sm.admit(torch.randint(0, cfg.vocab_size, (n,), generator=gen),
+                 sid=f"s{i}")
+    for _ in range(2):
+        mgr.active.process({"token": sm.next_token()})
+    before = {k: v.clone() for k, v in sm.cache.items()}
+    payload, nbytes = sm.export_layers(0, cfg.num_layers)
+    bufs = {k: v for k, v in payload.items() if k != HANDOFF_META_KEY}
+    assert all(isinstance(b, HostBuffer) and b.tensor.is_pinned()
+               and memoryview(b).readonly for _, _, b in bufs.values())
+    assert nbytes == sum(len(b) for _, _, b in bufs.values())
+    crc = 0
+    for k in sorted(bufs, key=repr):
+        dtype, shape, buf = bufs[k]
+        crc = zlib.crc32(repr((k, dtype, tuple(shape))).encode(), crc)
+        crc = zlib.crc32(bytes(buf), crc)
+    assert crc == payload[HANDOFF_META_KEY][2] == payload_checksum(payload)
+    sm.import_layers(payload)
+    del payload, bufs
+    torch.cuda.synchronize()
+    for k, v in sm.cache.items():
+        assert v.device.type == "cuda" and torch.equal(v, before[k]), k
+    mgr.close()
+
+
 def test_attention_kernels_at_head_dim_112(cuda):
     """zamba2-7b's shared attention: 32 heads of 112, MHA."""
     for dtype in (torch.float32, torch.bfloat16):
