@@ -1,7 +1,8 @@
 """Registry mapping --arch ids to the configs the port runs.
 
-Only the architectures whose slice has been ported are listed; the others
-arrive with their slices (see ROADMAP.md, Queue A).  The paper's own CNNs
+Only the architectures whose slice has been ported are listed; whisper
+(``audio``) and internvl2 (``vlm``) arrive with theirs (see ROADMAP.md,
+Queue A).  The paper's own CNNs
 (``PAPER_ARCHS``) give a ``CNNConfig``, every other id an ``ArchConfig``.
 """
 from __future__ import annotations
@@ -14,6 +15,11 @@ from repro_torch.configs.base import (ArchConfig, CNNConfig, INPUT_SHAPES,
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "starcoder2-7b": "starcoder2_7b",
+    "yi-34b": "yi_34b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "zamba2-7b": "zamba2_7b",
     # the paper's own models (Figs. 2-3)

@@ -1,7 +1,7 @@
 """Stage-wise model execution: the "sequence of layers" abstraction.
 
-The counterpart of ``repro/core/stages.py`` for the dense, ssm and hybrid
-families.  A model
+The counterpart of ``repro/core/stages.py`` for the dense, moe, ssm and
+hybrid families.  A model
 is a list of UNITS: unit 0 = embedding, units 1..L = decoder layers, unit
 L+1 = LM head.  A split after unit ``k`` puts units [0, k] on the edge stage
 and (k, N) on the cloud stage; the boundary tensor is the hidden state.
@@ -39,6 +39,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import cnn as CNN
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.models.transformer import layer_params
 
 
 @dataclass(frozen=True)
@@ -105,11 +106,6 @@ def tree_map(fn, tree) -> Any:
     return fn(tree)
 
 
-def layer_params(params, idx: int):
-    """Layer ``idx``'s weights as views into the stacked tensors."""
-    return tree_map(lambda a: a[idx], params["layers"])
-
-
 def param_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
@@ -159,8 +155,8 @@ class _BuiltStageCache:
 
 
 class StageRunner(_BuiltStageCache):
-    """Executes unit ranges [lo, hi) of a dense, ssm or hybrid model for
-    full-sequence inference.
+    """Executes unit ranges [lo, hi) of a dense, moe, ssm or hybrid model
+    for full-sequence inference.
 
     ``params`` are placed on ``device``, which defaults to the card and
     raises without one unless the caller asks for ``"cpu"``.
@@ -203,7 +199,7 @@ class StageRunner(_BuiltStageCache):
         li = i - 1                                   # decoder layer i - 1
         x = state["h"]
         lp = layer_params(params, li)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
             x, _, _ = T.attn_block_full(cfg, lp, x, rope_cs,
                                         impl=self.attn_impl,

@@ -1,8 +1,8 @@
 """Stateful dynamic switching: live KV/SSM state hand-off at repartition.
 
-The PyTorch counterpart of ``repro/core/stateful.py`` for the dense, ssm
-and hybrid families; ``moe``/``vlm`` raise ``NotImplementedError`` naming
-the slice that brings them.  A decode pipeline is stateful: every layer
+The PyTorch counterpart of ``repro/core/stateful.py`` for the dense, moe,
+ssm and hybrid families; ``vlm`` raises ``NotImplementedError`` naming
+the slice that brings it.  A decode pipeline is stateful: every layer
 carries per-stream decode state (a KV cache for attention layers, conv +
 SSM state for mamba layers, a KV cache for each application of the hybrid
 family's shared attention block), and when the split moves from ``a`` to
@@ -94,10 +94,10 @@ from repro_torch.models import transformer as T
 if TYPE_CHECKING:
     from repro_torch.serving.sessions import SessionManager
 
-_ATTN_FAMILIES = ("dense",)
+_ATTN_FAMILIES = ("dense", "moe")
 _SUPPORTED = _ATTN_FAMILIES + ("ssm", "hybrid")
-_LATER = {"moe": "the MoE slice (layers.moe_layer)",
-          "vlm": "the remaining-families slice"}
+_LATER = {"vlm": "the remaining-families slice (internvl2's frontend "
+                 "tokens)"}
 _DECODE_IMPLS = ("auto", "kernel", "reference")
 
 
@@ -178,19 +178,42 @@ class HostBuffer:
         return self._view[i]
 
 
-def _payload_entry(t: torch.Tensor) -> Tuple[str, Tuple[int, ...],
-                                               HostBuffer]:
+def _payload_entry(t: torch.Tensor, capacity: Optional[int] = None
+                   ) -> Tuple[str, Tuple[int, ...], HostBuffer]:
     """A tensor as an export's ``(dtype str, shape, buffer)`` entry, in
     host memory of its own: page-locked for a CUDA tensor (one DMA), a
-    copy for a CPU one (the payload must not alias live state)."""
+    copy for a CPU one (the payload must not alias live state).
+
+    ``capacity`` (elements): the page-locked block is requested at this
+    size whatever ``t``'s, and ``t`` lands in its first elements.  An
+    export passes each KV entry's size at ``max_seq``, so every export of
+    the entry asks the caching host allocator for one block size (it
+    rounds to powers of two), whatever the live context: the block that
+    ``warm_host_blocks`` left in its cache serves it."""
     t = t.detach()
     if t.device.type == "cuda":
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        n = t.numel()
+        block = torch.empty(max(n, capacity or 0), dtype=t.dtype,
+                            pin_memory=True)
+        host = block[:n].view(t.shape)
         host.copy_(t)
     else:
         host = t.clone(memory_format=torch.contiguous_format)
     buf = HostBuffer(host)
     return buf.dtype, tuple(host.shape), buf
+
+
+def warm_host_blocks(entries) -> int:
+    """Take from the caching host allocator, all at once, the page-locked
+    blocks that an export of the CUDA tensors ``entries`` takes
+    (``_payload_entry`` at each one's whole size, its capacity), then give
+    them back to its cache.  The first export of a process would
+    otherwise ``cudaHostAlloc`` its blocks inside a switch's downtime
+    (PERF.md; ROADMAP.md, Queue C); after this it finds them cached.
+    Returns the bytes requested."""
+    blocks = [torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+              for t in entries if t.device.type == "cuda"]
+    return sum(b.numel() * b.element_size() for b in blocks)
 
 
 def _from_payload(dtype: str, shape, buf, device=None) -> torch.Tensor:
@@ -349,7 +372,11 @@ class StatefulStageRunner:
         """One-token attention vs the heads-major cache, routed per
         ``decode_impl``.  Both paths take/return (B, 1, H, hd) and accept
         a scalar or per-row ``(B,)`` count of valid entries (the cache
-        already holds this token: ``pos + 1``)."""
+        already holds this token: ``pos + 1``).  Every live row is
+        attended, with no window, as the reference's stateful decode does
+        (its ``_attend``): the cache holds ``max_seq`` rows, and a native
+        window (mixtral's 4096) would show only past ``max_seq > window``.
+        The full-sequence passes apply the config's window."""
         if self.resolved_decode_impl == "kernel":
             return FD.flash_decode_attention(q, kc, vc, pos=valid)
         return Lyr.decode_attention(q, kc, vc, pos=valid)
@@ -420,8 +447,8 @@ class StatefulStageRunner:
         new[kk], new[vk] = kc, vc
         att = self._attend(q, kc, vc, valid)
         x = x + att.reshape(B, 1, -1) @ p["attn"]["wo"]
-        h2 = T._apply_norm(cfg, p["ln2"], x)
-        return x + Lyr.mlp(p["mlp"], h2, gated=cfg.gated_mlp)
+        ff, _ = T.feed_forward(cfg, p, T._apply_norm(cfg, p["ln2"], x))
+        return x + ff
 
     def _make_decode_fn(self, u0: int, u1: int):
         units = self.units[u0:u1]
@@ -883,14 +910,27 @@ class DecodeSession:
             for unit in self.runner.units[u0:u1]:
                 for k in _unit_state_keys(self.cfg, unit):
                     t = self.cache[k]
+                    cap = t.numel()
                     if _is_kv(k):                # KV: valid region only
                         t = t[:, :, :self.pos]
-                    dtype, shape, buf = _payload_entry(t)
+                    dtype, shape, buf = _payload_entry(t, cap)
                     payload[k] = (dtype, shape, buf)
                     nbytes += len(buf)
             payload[HANDOFF_META_KEY] = (self.epoch, self.pos,
                                          payload_checksum(payload))
         return payload, nbytes
+
+    def warm_export(self, lo: int, hi: int) -> int:
+        """Leave in the caching host allocator the page-locked blocks an
+        export of layers [lo, hi) takes (``warm_host_blocks``); the state
+        is not touched.  Returns the bytes; 0 off the card."""
+        u0 = unit_index_of_split(self.cfg, lo)
+        u1 = unit_index_of_split(self.cfg, hi)
+        with self._lock:
+            entries = [self.cache[k] for unit in self.runner.units[u0:u1]
+                       for k in _unit_state_keys(self.cfg, unit)
+                       if k in self.cache]
+        return warm_host_blocks(entries)
 
     def validate_payload(self, payload: Dict[str, tuple]) -> None:
         """Raise ``HandoffCorrupted`` unless the payload's envelope
@@ -1188,6 +1228,9 @@ class StatefulPipelinePool(PipelinePool):
         self.force_mode = force_mode
         self.last_handoff: Optional[HandoffReport] = None
         self.handoffs: List[HandoffReport] = []
+        # a switch may move any layers: their transfer export finds its
+        # page-locked blocks cached, never allocates in a downtime
+        session.warm_export(0, runner.num_units)
 
     def _new_pipeline(self, key) -> StatefulEdgeCloudPipeline:
         return StatefulEdgeCloudPipeline(self.runner, key.split, self.net,

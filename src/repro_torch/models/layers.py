@@ -1,4 +1,4 @@
-"""Transformer layers of the dense slice: norms, RoPE, attention, MLP.
+"""Transformer layers: norms, RoPE, attention, MLP and MoE.
 
 The PyTorch counterpart of ``repro/models/layers.py``: plain functions on
 tensors, params as plain dicts with the reference's keys and ``(in, out)``
@@ -18,6 +18,7 @@ No library attention is used.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -212,7 +213,7 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp(params, x, *, gated=True):
@@ -221,3 +222,92 @@ def mlp(params, x, *, gated=True):
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+def moe_capacity(tokens: int, top_k: int, num_experts: int,
+                 capacity_factor) -> int:
+    """Slots per expert: ``min(max(ceil(T * K / E * cf), K), T)``, and
+    ``T`` (no drops) when ``capacity_factor`` is None."""
+    if capacity_factor is None:
+        return tokens
+    c = max(int(math.ceil(tokens * top_k / num_experts * capacity_factor)),
+            top_k)
+    return min(c, tokens)
+
+
+def moe_layer(params, x, *, top_k, capacity_factor=1.25, aux_coef=0.01):
+    """Sort-based capacity-dispatch MoE (``repro.models.layers.moe_layer``)
+    in one dispatch group, the reference's layout off a mesh.
+
+    x: (B, S, D); expert weights stacked (E, D, F)/(E, F, D); the router
+    (D, E) in f32.  Routing in f32: softmax, then the top ``top_k`` experts
+    of each token (ties to the lower expert id, as ``jax.lax.top_k``),
+    gates renormalised by ``max(sum, 1e-9)``.  The ``T * K`` assignments
+    are stably sorted by expert id, so an expert over its capacity
+    (``moe_capacity``) drops the same assignments as the reference: the
+    ones of the latest tokens.  Returns ``(y, aux_loss)``, the
+    Switch-style load-balance loss.
+
+    The experts run in one of two layouts that compute the same function:
+    the reference's ``(E, C, D)`` slots (every expert's weights read once)
+    or, when there are at most half as many assignments as experts (a
+    decode step), each assignment against its own expert's weights
+    (only the chosen experts' weights are read)."""
+    B, S, D = x.shape
+    E = params["w_gate"].shape[0]
+    T, K = B * S, top_k
+    dev = x.device
+    xf = x.reshape(T, D)
+    logits = xf.float() @ params["router"].float()           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, idx = gate_vals[:, :K], idx[:, :K]            # (T, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = moe_capacity(T, K, E, capacity_factor)
+
+    # dispatch metadata: each assignment's slot in its expert's capacity
+    flat_e = idx.reshape(-1)                                 # (T*K,)
+    flat_tok = torch.arange(T * K, device=dev) // K
+    order = torch.sort(flat_e, stable=True).indices
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(T * K, device=dev) - starts[flat_e[order]]
+    pos_slot = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos_slot < C
+    weight = (gate_vals.reshape(-1) * keep).to(x.dtype)[:, None]
+
+    if 2 * T * K <= E:
+        # each assignment against its own expert's weights
+        xt = xf[flat_tok][:, None]                           # (T*K, 1, D)
+        h = F.silu(torch.bmm(xt, params["w_gate"][flat_e])) \
+            * torch.bmm(xt, params["w_up"][flat_e])
+        contrib = torch.bmm(h, params["w_down"][flat_e])[:, 0] * weight
+    else:
+        # the reference's (E, C, D) slots, gathered (no big scatter)
+        st = flat_tok[order]
+        sel = starts[:, None] + torch.arange(C, device=dev)[None, :]
+        valid = torch.arange(C, device=dev)[None, :] \
+            < torch.clamp(counts, max=C)[:, None]
+        gather_tok = torch.where(valid, st[sel.clamp(0, T * K - 1)],
+                                 torch.full_like(sel, T))
+        xpad = torch.cat([xf, xf.new_zeros((1, D))], 0)
+        xe = xpad[gather_tok]                                # (E, C, D)
+        h = F.silu(torch.bmm(xe, params["w_gate"])) \
+            * torch.bmm(xe, params["w_up"])
+        ye = torch.bmm(h, params["w_down"])                  # (E, C, D)
+        ye = F.pad(ye, (0, 0, 0, 1))                         # trash slot
+        pos_c = torch.where(keep, pos_slot, torch.full_like(pos_slot, C))
+        contrib = ye[flat_e, pos_c] * weight                 # (T*K, D)
+    y = contrib.reshape(T, K, D).sum(1)
+
+    # load-balance aux loss (Switch-style)
+    me = probs.mean(0)
+    top1 = torch.bincount(idx[:, 0], minlength=E).float() / T
+    aux = aux_coef * E * torch.sum(me * top1)
+
+    y = y.reshape(B, S, D)
+    if "shared_w_gate" in params:
+        shared = F.silu(x @ params["shared_w_gate"]) \
+            * (x @ params["shared_w_up"])
+        y = y + shared @ params["shared_w_down"]
+    return y, aux

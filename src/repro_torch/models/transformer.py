@@ -1,14 +1,35 @@
-"""Decoder models: init, embedding, norm, QKV projection, RoPE tables,
-full attention block.
+"""Decoder models: init, the full-sequence blocks, and the standalone
+entry points ``forward_hidden``, ``prefill`` and ``decode_step``.
 
-The subset of ``repro/models/transformer.py`` that the stateless and
-stateful edge-cloud paths run, for the dense, ssm (stacked mamba1 layers)
-and hybrid (stacked mamba2 layers plus one shared attention+MLP layer,
-``params["shared"]``) families.  Params are a nested dict of
+The PyTorch counterpart of ``repro/models/transformer.py`` for the dense,
+moe (attention + ``layers.moe_layer``), ssm (stacked mamba1 layers) and
+hybrid (stacked mamba2 layers plus one shared attention+MLP layer,
+``params["shared"]``) families; ``vlm`` and ``audio`` raise
+``NotImplementedError`` naming the slice that brings them, and
+``train_loss`` waits for the training slice.  Params are a nested dict of
 tensors with the reference's keys, shapes and ``(in, out)`` layout; the
 per-layer weights are stacked on a leading L axis
 (``params["layers"]["attn"]["wq"]`` is ``(L, d_model, H * head_dim)``), so
 a JAX param pytree converts leaf by leaf (``repro_torch.params``).
+
+Where the port differs from the reference, and why:
+
+* **Eager layers.**  The reference scans (``lax.scan``, ``remat``) over
+  the stacked layers to keep its compiled program depth-independent; here
+  each entry point is one Python loop over the layers, and ``remat`` is
+  accepted and changes nothing (no backward pass runs here).
+* **In-place decode caches.**  ``decode_step`` writes the token's K/V
+  into the cache's stacked tensors in place (one row, at the ring index)
+  and returns a new dict holding the same K/V tensors and ``pos + 1``;
+  the reference returns updated copies.  A caller that needs the cache
+  from before a step clones it.
+* **The ring.**  A windowed cache holds ``CL = min(max_seq, window)`` rows
+  and position ``p`` lives at row ``p mod CL`` (``_cache_from_prefill``
+  places a prompt longer than ``CL`` that way too), so ``decode_step``
+  after ``prefill`` equals the windowed forward over the longer sequence
+  at every prompt length.  The reference keeps such a prompt's last
+  ``CL`` rows at rows ``0 .. CL - 1``, which agrees only when
+  ``S mod CL == 0`` (ROADMAP.md, Queue C).
 """
 from __future__ import annotations
 
@@ -17,17 +38,26 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flash_decode as FD
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
 
-_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_ATTN_FAMILIES = ("dense", "moe")
+_LATER = {"vlm": "the remaining-families slice (internvl2's frontend "
+                 "tokens)",
+          "audio": "the remaining-families slice (whisper's encoder and "
+                   "cross-attention)"}
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port runs "
-            f"{_PORTED_FAMILIES}; see ROADMAP.md Queue A)")
+    if cfg.family in _PORTED_FAMILIES:
+        return
+    if cfg.family in _LATER:
+        raise NotImplementedError(f"family {cfg.family!r} arrives with "
+                                  f"{_LATER[cfg.family]}; see ROADMAP.md "
+                                  f"Queue A")
+    raise ValueError(cfg.family)
 
 
 def _apply_norm(cfg, p, x):
@@ -47,10 +77,23 @@ def _project_qkv(cfg, p, h):
     return q, k, v
 
 
+def feed_forward(cfg, p, h):
+    """The layer's MLP, or its MoE where it has one (routed with the
+    config's ``top_k`` and ``capacity_factor``): ``(y, aux)``, aux the
+    MoE's load-balance loss or None."""
+    if "moe" in p:
+        m = cfg.moe
+        return Lyr.moe_layer(p["moe"], h, top_k=m.top_k,
+                             capacity_factor=m.capacity_factor,
+                             aux_coef=m.router_aux_coef)
+    return Lyr.mlp(p["mlp"], h, gated=cfg.gated_mlp), None
+
+
 def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
                     q_offset=0):
-    """Self-attention + MLP sublayers over a full sequence.
-    Returns (x, (k, v), aux) with k/v sequence-major (B, S, KH, hd)."""
+    """Self-attention + MLP (or MoE) sublayers over a full sequence.
+    Returns (x, (k, v), aux) with k/v sequence-major (B, S, KH, hd) and
+    aux the MoE's load-balance loss (0 without one)."""
     h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p["attn"], h)
     if rope_cs is not None:
@@ -61,10 +104,11 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
                         q_offset=q_offset, impl=impl)
     B, S = x.shape[:2]
     x = x + att.reshape(B, S, -1) @ p["attn"]["wo"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h2 = _apply_norm(cfg, p["ln2"], x)
-    x = x + Lyr.mlp(p["mlp"], h2, gated=cfg.gated_mlp)
-    return x, (k, v), aux
+    ff, aux = feed_forward(cfg, p, h2)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, (k, v), aux
 
 
 def embed_inputs(cfg, params, inputs):
@@ -86,9 +130,27 @@ def _rope_for(cfg, S, offset=0, device=None):
 # init
 # ---------------------------------------------------------------------------
 
+def init_moe_params(cfg, normal, lead=()):
+    """One MoE sublayer's weights (``init_moe_params``): the router (D, E)
+    in f32 whatever the model's dtype, the routed experts stacked (E, D, F)
+    / (E, F, D), and the shared experts' SiLU-gated MLP where the config
+    has them; each with the leading dims ``lead``."""
+    m = cfg.moe
+    d, E, F = cfg.d_model, m.num_experts, m.expert_d_ff
+    p = {"router": normal(*lead, d, E, dtype=torch.float32),
+         "w_gate": normal(*lead, E, d, F), "w_up": normal(*lead, E, d, F),
+         "w_down": normal(*lead, E, F, d)}
+    if m.num_shared_experts:
+        p.update(shared_w_gate=normal(*lead, d, m.shared_d_ff),
+                 shared_w_up=normal(*lead, d, m.shared_d_ff),
+                 shared_w_down=normal(*lead, m.shared_d_ff, d))
+    return p
+
+
 def _decoder_layer(cfg, normal, ones, zeros, lead=()):
     """One attention decoder layer's weights (``init_decoder_layer``),
-    each with the leading dims ``lead`` (``(L,)`` for a stack)."""
+    each with the leading dims ``lead`` (``(L,)`` for a stack): an MoE
+    sublayer (``"moe"``) in place of the MLP where the config has one."""
     d, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
     H, KH = cfg.num_heads, cfg.num_kv_heads
     attn = {"wq": normal(*lead, d, H * hd), "wk": normal(*lead, d, KH * hd),
@@ -96,13 +158,18 @@ def _decoder_layer(cfg, normal, ones, zeros, lead=()):
     if cfg.qkv_bias:
         attn.update(bq=zeros(*lead, H * hd), bk=zeros(*lead, KH * hd),
                     bv=zeros(*lead, KH * hd))
-    if cfg.gated_mlp:
-        mlp = {"w_gate": normal(*lead, d, F), "w_up": normal(*lead, d, F),
-               "w_down": normal(*lead, F, d)}
+    layer = {"ln1": {"scale": ones(*lead, d)}, "attn": attn,
+             "ln2": {"scale": ones(*lead, d)}}
+    if cfg.moe is not None:
+        layer["moe"] = init_moe_params(cfg, normal, lead)
+    elif cfg.gated_mlp:
+        layer["mlp"] = {"w_gate": normal(*lead, d, F),
+                        "w_up": normal(*lead, d, F),
+                        "w_down": normal(*lead, F, d)}
     else:
-        mlp = {"w_up": normal(*lead, d, F), "w_down": normal(*lead, F, d)}
-    return {"ln1": {"scale": ones(*lead, d)}, "attn": attn,
-            "ln2": {"scale": ones(*lead, d)}, "mlp": mlp}
+        layer["mlp"] = {"w_up": normal(*lead, d, F),
+                        "w_down": normal(*lead, F, d)}
+    return layer
 
 
 def init_model(cfg, generator: Optional[torch.Generator] = None,
@@ -112,7 +179,9 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     std (``repro.models.transformer.init_model``): normal * 0.02 for every
     attention/MLP matrix, ones for norm scales, zeros for QKV biases, and
     ``models.ssm``'s initialisation of the mamba blocks (their ``dt_bias``,
-    ``A_log`` and ``D`` in f32 whatever ``dtype``).  The ``ssm`` family
+    ``A_log`` and ``D`` in f32 whatever ``dtype``, as the MoE router).
+    The ``dense`` and ``moe`` families stack attention decoder layers
+    (``moe`` with an MoE sublayer in place of the MLP); the ``ssm`` family
     stacks mamba1 layers; ``hybrid`` stacks mamba2 layers and adds
     ``params["shared"]``, one attention decoder layer.
 
@@ -127,7 +196,7 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
 
-    def normal(*shape, std=0.02):
+    def normal(*shape, std=0.02, dtype=dtype):
         t = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
         return t.mul_(std)
 
@@ -145,7 +214,7 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
                               "final_norm": {"scale": ones(d)}}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, cfg.vocab_size)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         params["layers"] = _decoder_layer(cfg, normal, ones, zeros, (L,))
         return params
     if cfg.ssm.kind == "mamba1":
@@ -156,3 +225,245 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     if cfg.family == "hybrid":
         params["shared"] = _decoder_layer(cfg, normal, ones, zeros)
     return params
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def layer_params(params, idx: int):
+    """Layer ``idx``'s weights as views into the stacked tensors."""
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[idx]
+    return walk(params["layers"])
+
+
+def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
+                   remat=True, collect_kv=False, ssm_impl="kernel"):
+    """Embedding, every decoder layer and the final norm.
+
+    Returns ``(hidden (B, S, D), aux_loss, kv_tree or None)``; with
+    ``collect_kv`` the tree is, for ``dense``/``moe``, ``{"k", "v"}`` each
+    ``(L, B, S, KH, hd)``; for ``ssm`` the mamba layers' final state
+    ``{"conv", "ssm"}`` stacked on L; for ``hybrid`` ``{"mamba": ...,
+    "attn": {"k", "v"}}`` with one KV per shared-block application.
+    ``attn_impl``: ``layers.attention``'s (``"kernel"``/``"pallas"`` for
+    the flash-attention kernel); ``ssm_impl``: the scans' (``models.ssm``,
+    the kernels by default).  ``remat`` changes nothing (module
+    docstring)."""
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    B, S, _ = x.shape
+    rope_cs = _rope_for(cfg, S, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    L = cfg.num_layers
+    kv_tree = None
+
+    def attn(p, x, kvs):
+        x, kv, a = attn_block_full(cfg, p, x, rope_cs, impl=attn_impl,
+                                   window=window)
+        if collect_kv:
+            kvs.append(kv)
+        return x, a
+
+    def stacked(kvs):
+        return {"k": torch.stack([k for k, _ in kvs]),
+                "v": torch.stack([v for _, v in kvs])}
+
+    kvs, caches = [], []
+    if cfg.family in _ATTN_FAMILIES:
+        for li in range(L):
+            x, a = attn(layer_params(params, li), x, kvs)
+            aux = aux + a
+        if collect_kv:
+            kv_tree = stacked(kvs)
+    else:
+        period = cfg.hybrid_period if cfg.family == "hybrid" else 0
+        for li in range(L):
+            lp = layer_params(params, li)
+            y, cache = SSM.ssm_block(cfg, lp["mamba"],
+                                     _apply_norm(cfg, lp["ln"], x),
+                                     impl=ssm_impl)
+            x = x + y
+            if collect_kv:
+                caches.append(cache)
+            if period and (li + 1) % period == 0:
+                x, a = attn(params["shared"], x, kvs)
+                aux = aux + a
+        if collect_kv:
+            kv_tree = {"conv": torch.stack([c["conv"] for c in caches]),
+                       "ssm": torch.stack([c["ssm"] for c in caches])}
+            if period:
+                kv_tree = {"mamba": kv_tree, "attn": stacked(kvs)}
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return x, aux, kv_tree
+
+
+def prefill(cfg, params, inputs, *, max_seq, attn_impl="chunked", window=None,
+            remat=True, ssm_impl="kernel"):
+    """Full-prompt forward.  Returns ``(last_logits (B, V) f32, cache)``,
+    the cache as ``init_cache`` shapes it, ``pos`` the prompt length.
+    ``window`` defaults to the config's native sliding window."""
+    window = window if window is not None else cfg.sliding_window
+    hidden, _, kv = forward_hidden(cfg, params, inputs, attn_impl=attn_impl,
+                                   window=window, remat=remat,
+                                   collect_kv=True, ssm_impl=ssm_impl)
+    S = hidden.shape[1]
+    logits = (hidden[:, -1] @ lm_head_weights(cfg, params)).float()
+    return logits, _cache_from_prefill(cfg, kv, S, max_seq, window)
+
+
+def ring_rows(a, cache_len: int):
+    """Sequence-major K/V ``(L, B, S, KH, hd)`` of positions ``0 .. S-1``
+    as a heads-major ring ``(L, B, KH, cache_len, hd)``: position ``p`` at
+    row ``p mod cache_len`` (the last ``cache_len`` positions where ``S``
+    exceeds it), zeros in rows no position reached."""
+    S = a.shape[2]
+    if S >= cache_len:
+        a = torch.roll(a[:, :, S - cache_len:], shifts=S % cache_len, dims=2)
+    else:
+        a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, cache_len - S))
+    return a.transpose(2, 3).contiguous()
+
+
+def _cache_from_prefill(cfg, kv, S, max_seq, window):
+    pos = torch.tensor(S, dtype=torch.int32, device=_kv_device(kv))
+    cl = _cache_len(cfg, max_seq, window)
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": ring_rows(kv["k"], cl), "v": ring_rows(kv["v"], cl),
+                "pos": pos}
+    if cfg.family == "ssm":
+        return {"mamba": kv, "pos": pos}
+    return {"mamba": kv["mamba"],
+            "attn": {"k": ring_rows(kv["attn"]["k"], cl),
+                     "v": ring_rows(kv["attn"]["v"], cl)},
+            "pos": pos}
+
+
+def _kv_device(kv):
+    while isinstance(kv, dict):
+        kv = next(iter(kv.values()))
+    return kv.device
+
+
+def _cache_len(cfg, max_seq, window):
+    return min(max_seq, window) if window else max_seq
+
+
+def effective_window(cfg, seq_len):
+    """Attention window used at this sequence length (swa-variant policy)."""
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    if cfg.long_context_window and seq_len > 131_072:
+        return cfg.long_context_window
+    return None
+
+
+def init_cache(cfg, batch, max_seq, dtype=torch.float32, window=None,
+               device="cuda"):
+    """Zero decode cache (shapes mirror ``_cache_from_prefill``): K/V
+    heads-major ``(L, B, KH, CL, hd)`` with ``CL = min(max_seq, window)``,
+    mamba conv state in ``dtype`` and SSM state in f32; ``pos`` an int32
+    0-d tensor.  Every state tensor is its own (decode writes in place).
+    ``device`` defaults to the card."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    cl = _cache_len(cfg, max_seq, window)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": zeros(L, batch, KH, cl, hd),
+                "v": zeros(L, batch, KH, cl, hd), "pos": pos}
+    s = cfg.ssm
+    if cfg.family == "ssm":
+        return {"mamba": {"conv": zeros(L, batch, s.d_conv - 1, cfg.d_inner),
+                          "ssm": zeros(L, batch, cfg.d_inner, s.d_state,
+                                       dt=torch.float32)},
+                "pos": pos}
+    H = cfg.d_inner // s.head_dim
+    n_apps = cfg.num_layers // cfg.hybrid_period
+    return {"mamba": {"conv": zeros(L, batch, s.d_conv - 1,
+                                    cfg.d_inner + 2 * s.d_state),
+                      "ssm": zeros(L, batch, H, s.head_dim, s.d_state,
+                                   dt=torch.float32)},
+            "attn": {"k": zeros(n_apps, batch, KH, cl, hd),
+                     "v": zeros(n_apps, batch, KH, cl, hd)},
+            "pos": pos}
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _attn_decode_sublayer(cfg, p, x, k_all, v_all, li, pos, *, window,
+                          impl="chunked"):
+    """One-token self-attention (+ MLP or MoE) against the STACKED
+    heads-major ring ``k/v_all`` ``(L, B, KH, CL, hd)``; layer ``li``'s
+    row ``pos mod CL`` takes the token's K/V in place.  The ring's length
+    already bounds the window (``window`` is the reference's argument and
+    unused), so only unwritten rows are masked: ``min(pos + 1, CL)`` rows
+    are live.  ``impl`` ``"kernel"``/``"pallas"`` runs the flash-decode
+    kernel; any other the plain ``layers.decode_attention``."""
+    B = x.shape[0]
+    h = _apply_norm(cfg, p["ln1"], x)
+    q, k, v = _project_qkv(cfg, p["attn"], h)
+    cos, sin = Lyr.rope_cos_sin(pos.reshape(1), cfg.head_dim, cfg.rope_theta)
+    q = Lyr.apply_rope(q, cos[None], sin[None])
+    k = Lyr.apply_rope(k, cos[None], sin[None])
+    CL = k_all.shape[3]
+    widx = torch.remainder(pos, CL).reshape(1).long()       # ring row
+    k_layer, v_layer = k_all[li], v_all[li]
+    k_layer.index_copy_(2, widx, k.transpose(1, 2).to(k_layer.dtype))
+    v_layer.index_copy_(2, widx, v.transpose(1, 2).to(v_layer.dtype))
+    live = torch.clamp(pos + 1, max=CL)
+    if impl in ("kernel", "pallas"):
+        att = FD.flash_decode_attention(q, k_layer, v_layer, pos=live)
+    else:
+        att = Lyr.decode_attention(q, k_layer, v_layer, pos=live)
+    x = x + att.reshape(B, 1, -1) @ p["attn"]["wo"]
+    ff, _ = feed_forward(cfg, p, _apply_norm(cfg, p["ln2"], x))
+    return x + ff
+
+
+def decode_step(cfg, params, token, cache, *, window=None, attn_impl="chunked",
+                ssm_impl="kernel"):
+    """token: (B, 1) int.  Returns ``(logits (B, V) f32, new_cache)``.
+    K/V rows are written into ``cache``'s tensors in place (module
+    docstring); the mamba layers' state comes back as new tensors."""
+    _check_family(cfg)
+    x = params["embed"][token]
+    pos = cache["pos"]
+    if cfg.family in _ATTN_FAMILIES:
+        for li in range(cfg.num_layers):
+            x = _attn_decode_sublayer(cfg, layer_params(params, li), x,
+                                      cache["k"], cache["v"], li, pos,
+                                      window=window, impl=attn_impl)
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    else:
+        period = cfg.hybrid_period if cfg.family == "hybrid" else 0
+        convs, hs = [], []
+        for li in range(cfg.num_layers):
+            lp = layer_params(params, li)
+            y, nc = SSM.ssm_block(
+                cfg, lp["mamba"], _apply_norm(cfg, lp["ln"], x),
+                {"conv": cache["mamba"]["conv"][li],
+                 "ssm": cache["mamba"]["ssm"][li]}, impl=ssm_impl)
+            x = x + y
+            convs.append(nc["conv"])
+            hs.append(nc["ssm"])
+            if period and (li + 1) % period == 0:
+                x = _attn_decode_sublayer(
+                    cfg, params["shared"], x, cache["attn"]["k"],
+                    cache["attn"]["v"], (li + 1) // period - 1, pos,
+                    window=window, impl=attn_impl)
+        new_cache = {"mamba": {"conv": torch.stack(convs),
+                               "ssm": torch.stack(hs)}, "pos": pos + 1}
+        if period:
+            new_cache["attn"] = cache["attn"]
+    x = _apply_norm(cfg, params["final_norm"], x)
+    logits = (x[:, 0] @ lm_head_weights(cfg, params)).float()
+    return logits, new_cache

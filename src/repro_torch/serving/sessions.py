@@ -72,7 +72,7 @@ from repro_torch.core.stateful import (HANDOFF_META_KEY, HandoffCorrupted,
                                        _from_payload, _is_kv,
                                        _payload_entry, _unit_state_keys,
                                        payload_checksum,
-                                       unit_index_of_split)
+                                       unit_index_of_split, warm_host_blocks)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import transformer as T
 
@@ -445,14 +445,25 @@ class SessionManager:
             for unit in self.runner.units[u0:u1]:
                 for k in _unit_state_keys(self.cfg, unit):
                     t = self.cache[k]
+                    cap = t.numel()
                     if _is_kv(k):
                         t = t[:, :, :pos]
-                    dtype, shape, buf = _payload_entry(t)
+                    dtype, shape, buf = _payload_entry(t, cap)
                     payload[k] = (dtype, shape, buf)
                     nbytes += len(buf)
             payload[HANDOFF_META_KEY] = (self.epoch, pos,
                                          payload_checksum(payload))
         return payload, nbytes
+
+    def warm_export(self, lo: int, hi: int) -> int:
+        """As ``DecodeSession.warm_export``: the page-locked blocks of an
+        export of layers [lo, hi) of the whole pool, taken and cached."""
+        u0 = unit_index_of_split(self.cfg, lo)
+        u1 = unit_index_of_split(self.cfg, hi)
+        with self._lock:
+            entries = [self.cache[k] for unit in self.runner.units[u0:u1]
+                       for k in _unit_state_keys(self.cfg, unit)]
+        return warm_host_blocks(entries)
 
     def validate_payload(self, payload: Dict[str, tuple]) -> None:
         """Same integrity contract as ``DecodeSession.validate_payload``."""

@@ -1,8 +1,10 @@
 """The port on a CUDA device: the flash-decode, flash-attention,
 mamba1_scan and ssd_scan kernels against their plain versions (the
 attention kernels at zamba2-7b's head_dim 112 too), short kernel-routed
-decodes against the reference route for the dense, ssm and hybrid
-families, and the stateless pipeline on the prefill kernel.
+decodes against the reference route for the dense, moe, ssm and hybrid
+families and for the standalone ``decode_step`` on a windowed ring, the
+stateless pipeline on the prefill kernel, and transfer hand-offs that
+take no page-locked block from the host allocator.
 Imports only torch and the port, so it also runs where JAX is absent.
 Every test here needs the card and skips without it:
 
@@ -611,3 +613,98 @@ def test_mamba_scan_kernel_masked_recompute_freezes(cuda, live):
     _, h_live = MS.mamba1_scan(dt[:, :live], Bc[:, :live], Cc[:, :live],
                                x[:, :live], A)
     assert torch.equal(h_pad, h_live)
+
+
+@pytest.mark.parametrize("pool", ["decode_session", "slot_pool"])
+@pytest.mark.parametrize("strategy", ["switch_b2", "switch_a"])
+def test_transfer_switch_allocates_no_page_locked_block(cuda, pool,
+                                                        strategy):
+    """A stateful pool takes the page-locked blocks of its transfer
+    exports when it is made (``warm_export``), and every export asks for
+    an entry's block at its ``max_seq`` size: a transfer switch then grows
+    the caching host allocator by no block (``num_host_alloc``)."""
+    from repro_torch.serving import make_session_manager
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              num_layers=4)
+    kw = dict(split=2, net=NetworkModel(1000.0), max_seq=64, device=cuda,
+              force_mode="transfer")
+    if pool == "slot_pool":
+        mgr, s = make_session_manager(cfg, num_slots=4, **kw)
+        gen = torch.Generator().manual_seed(0)
+        for n in (7, 30):
+            s.admit(torch.randint(0, cfg.vocab_size, (n,), generator=gen))
+    else:
+        mgr, s = make_stateful_manager(cfg, prompt_len=9, **kw)
+    for split in (1, 3, 0):
+        for _ in range(2):
+            mgr.active.process({"token": s.next_token()})
+        if strategy == "switch_a":
+            mgr.build_standby(split)
+        before = torch.cuda.host_memory_stats()["num_host_alloc"]
+        rep = mgr.repartition(strategy, split)
+        assert rep.handoff_mode == "transfer" and rep.handoff_bytes > 0
+        assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+        mgr.drain()
+    mgr.close()
+
+
+def test_moe_kernel_route_matches_reference_route(cuda):
+    """Reduced qwen2-moe-a2.7b in f32 at the configured capacity factor
+    1.25: the prefill on the flash-attention kernel and decode steps on the
+    flash-decode kernel (one launch a layer) against the reference route,
+    through a switch on each hand-off arm."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(cfg, num_layers=4, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    kw = dict(split=2, net=NetworkModel(20.0), prompt_len=24, max_seq=64,
+              device=cuda, attn_impl="kernel")
+    before = FA.flash_attention.launches
+    km, ks = make_stateful_manager(cfg, decode_impl="auto", **kw)
+    assert FA.flash_attention.launches == before + 2 * cfg.num_layers
+    rm, rs = make_stateful_manager(cfg, decode_impl="reference", **kw)
+    assert km.runner.resolved_decode_impl == "kernel"
+    for arm, split in [(None, None), ("transfer", 1), ("recompute", 3)]:
+        if arm is not None:
+            for m in (km, rm):
+                m.pool.force_mode = arm
+                assert m.repartition("switch_b2", split).handoff_mode == arm
+        for _ in range(3):
+            tok = ks.next_token()
+            before = FD.flash_decode_attention.launches
+            a, _ = km.active.process({"token": tok})
+            assert FD.flash_decode_attention.launches == \
+                before + cfg.num_layers
+            b, _ = rm.active.process({"token": tok})
+            assert (a - b).abs().max().item() <= 5e-4
+    km.close()
+    rm.close()
+
+
+@pytest.mark.parametrize("S", [5, 16, 13])
+def test_standalone_decode_step_kernel_route_on_ring(cuda, S):
+    """Reduced mixtral-8x22b in f32 with a window of 8: ``prefill`` on the
+    flash-attention kernel (window 8) and ``decode_step`` on the
+    flash-decode kernel over the 8-row ring, as it wraps, against the plain
+    route (chunked attention, ``layers.decode_attention``) to 5e-4; one
+    launch a layer each."""
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                              sliding_window=8)
+    params = init_model(cfg, device=cuda, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    seq = torch.randint(0, cfg.vocab_size, (2, S + 10), generator=gen) \
+        .to(cuda)
+    before = FA.flash_attention.launches
+    kl, kc = T.prefill(cfg, params, {"tokens": seq[:, :S]}, max_seq=64,
+                       attn_impl="kernel")
+    assert FA.flash_attention.launches == before + cfg.num_layers
+    pl, pc = T.prefill(cfg, params, {"tokens": seq[:, :S]}, max_seq=64)
+    assert kc["k"].shape[3] == 8
+    assert (kl - pl).abs().max().item() <= 5e-4
+    for n in range(S, S + 10):
+        before = FD.flash_decode_attention.launches
+        kl, kc = T.decode_step(cfg, params, seq[:, n:n + 1], kc,
+                               attn_impl="kernel")
+        assert FD.flash_decode_attention.launches == before + cfg.num_layers
+        pl, pc = T.decode_step(cfg, params, seq[:, n:n + 1], pc)
+        assert (kl - pl).abs().max().item() <= 5e-4

@@ -33,6 +33,7 @@ from repro_torch.core.network import NetworkModel  # noqa: E402
 from repro_torch.core.state_handoff import per_layer_state_bytes  # noqa: E402
 from repro_torch.core.stateful import (StatefulStageRunner,  # noqa: E402
                                        make_stateful_manager)
+from repro_torch.models.transformer import init_model  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serving import (ServingEngine, SlotPoolFull,  # noqa: E402
                                  VirtualClock, make_session_manager,
@@ -355,6 +356,12 @@ def test_moe_family_and_empty_pool_rejected():
     fake = types.SimpleNamespace(cfg=dataclasses.replace(tcfg, family="moe"))
     with pytest.raises(ValueError, match="MoE"):
         SessionManager(fake, num_slots=2)
+    # a real MoE runner (the stateful path serves the family) is refused
+    # all the same: capacity routing couples the slots' rows
+    moe = tget("qwen2-moe-a2.7b").reduced()
+    with pytest.raises(ValueError, match="MoE"):
+        SessionManager(StatefulStageRunner(moe, init_model(moe, device="cpu"),
+                                           device="cpu"), num_slots=2)
     fake.cfg = tcfg
     with pytest.raises(ValueError, match="num_slots"):
         SessionManager(fake, num_slots=0)

@@ -160,6 +160,34 @@ def test_downtime_ordering_and_memory(pair):
     shared.close()
 
 
+@pytest.fixture(scope="module")
+def moe_pair():
+    """Reduced qwen2-moe-a2.7b (2 layers of 4 experts top-2 and a shared
+    expert) routed with the configured capacity factor 1.25, so the
+    24-token request overflows experts: the same weights and prompt in both
+    packages, each runner on its kernel route."""
+    def cfg_of(get):
+        cfg = get("qwen2-moe-a2.7b").reduced()
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25))
+    cfg = cfg_of(get_config)
+    params = JT.init_model(cfg, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, SEQ))
+    jr = JRunner(cfg, params, attn_impl="pallas")
+    tr = StageRunner(cfg_of(tget), from_numpy(jax.tree.map(np.asarray,
+                                                           params)),
+                     attn_impl="kernel", device="cpu")
+    return jr, tr, tokens
+
+
+def test_moe_stage_runner_matches_jax_every_split(moe_pair):
+    test_stage_runner_matches_jax_every_split(moe_pair)
+
+
+def test_moe_switching_preserves_logits_every_strategy(moe_pair):
+    test_switching_preserves_logits_every_strategy(moe_pair)
+
+
 def _stateful_pair(**kw):
     cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
                               num_layers=3, num_kv_heads=2)
@@ -211,8 +239,9 @@ def test_entry_points_need_cuda_unless_cpu(pair):
     _, tr, _ = pair
     with pytest.raises(RuntimeError, match="CUDA"):
         StageRunner(tr.cfg, tr.params)
-    # a family still to port (ssm and hybrid are: test_torch_ssm_serving)
-    cfg = dataclasses.replace(tr.cfg, family="moe")
+    # a family still to port (ssm and hybrid are: test_torch_ssm_serving;
+    # moe is: the MoE tests below)
+    cfg = dataclasses.replace(tr.cfg, family="vlm")
     with pytest.raises(NotImplementedError):
         StageRunner(cfg, tr.params, device="cpu")
 

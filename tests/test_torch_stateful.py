@@ -29,13 +29,28 @@ from repro_torch.params import from_numpy  # noqa: E402
 
 MAX_SEQ = 32
 PROMPT = 8
-CASES = {"dense": {}, "dense_gqa": {"num_kv_heads": 2}}
+# reduced qwen2.5-3b, and reduced qwen2-moe-a2.7b (4 experts top-2, a
+# shared expert) with no-drop routing as reduced() sets it, and with the
+# configured capacity factor 1.25: its 8-token prefill then drops
+# assignments of experts over their 5 slots, the same ones in both
+# packages, while a decode step (1 token, 1 slot) drops none
+CASES = {"dense": {}, "dense_gqa": {"num_kv_heads": 2},
+         "moe": {"arch": "qwen2-moe-a2.7b"},
+         "moe_drops": {"arch": "qwen2-moe-a2.7b", "capacity_factor": 1.25}}
 
 
 def _cfgs(name, num_layers=3):
     kw = dict(CASES[name], num_layers=num_layers)
-    return (dataclasses.replace(get_config("qwen2.5-3b").reduced(), **kw),
-            dataclasses.replace(tget("qwen2.5-3b").reduced(), **kw))
+    arch = kw.pop("arch", "qwen2.5-3b")
+    cf = kw.pop("capacity_factor", None)
+
+    def build(get):
+        cfg = dataclasses.replace(get(arch).reduced(), **kw)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+        return cfg
+    return build(get_config), build(tget)
 
 
 def _pair(name="dense", *, split=1, jax_impl="reference",
@@ -90,9 +105,15 @@ def test_prefill_and_decode_match_jax(name):
         m.close()
 
 
-@pytest.mark.parametrize("force_mode", ["transfer", "recompute"])
-def test_switching_stream_matches_jax(force_mode):
-    (jm, js), (tm, ts) = _pair(split=1, standby_split=2,
+@pytest.mark.parametrize("name,force_mode", [
+    pytest.param("dense", "transfer", id="transfer"),
+    pytest.param("dense", "recompute", id="recompute"),
+    pytest.param("moe", "transfer", id="moe-transfer"),
+    pytest.param("moe", "recompute", id="moe-recompute"),
+    pytest.param("moe_drops", "transfer", id="moe_drops-transfer"),
+    pytest.param("moe_drops", "recompute", id="moe_drops-recompute")])
+def test_switching_stream_matches_jax(name, force_mode):
+    (jm, js), (tm, ts) = _pair(name, split=1, standby_split=2,
                                force_mode=force_mode)
     for strategy, split in [(None, None), ("switch_a", 2), ("switch_b2", 0),
                             ("pause_resume", 1)]:
@@ -289,11 +310,12 @@ def test_decode_impl_validation_and_auto_resolution():
 
 def test_unported_parts_raise():
     _, tcfg = _cfgs("dense")
-    for family in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError):
-            unit_list(dataclasses.replace(tcfg, family=family))
-    # the ssm and hybrid families are ported (tests/test_torch_ssm_serving.py)
-    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+    with pytest.raises(NotImplementedError):
+        unit_list(dataclasses.replace(tcfg, family="vlm"))
+    # the ssm and hybrid families are ported (tests/test_torch_ssm_serving.py),
+    # and so is moe (the MoE cases above)
+    for arch in ("falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b",
+                 "mixtral-8x22b"):
         assert unit_list(tget(arch))[0] == ("layer", 0)
     with pytest.raises(NotImplementedError):
         PipelineKey(split=1, mesh_shape=(1, 2))
@@ -303,3 +325,32 @@ def test_unported_parts_raise():
                         fault_plan=plan).fault_plan is plan
     with pytest.raises(NotImplementedError):
         PipelinePool(None, NetworkModel(20.0), {}, mesh_shape=(2,))
+
+
+def test_pool_warms_the_transfer_export():
+    """A stateful pool takes the page-locked blocks of a transfer export
+    of every layer when it is made (``warm_export``; on the CPU there are
+    none to take), so no switch's export allocates them
+    (tests/test_torch_cuda.py counts that on the card)."""
+    from repro_torch.core.stateful import DecodeSession
+    _, tcfg = _cfgs("dense", num_layers=4)
+    calls = []
+    real = DecodeSession.warm_export
+
+    def spy(self, lo, hi):
+        calls.append((lo, hi))
+        return real(self, lo, hi)
+    DecodeSession.warm_export = spy
+    try:
+        mgr, s = make_stateful_manager(tcfg, split=1,
+                                       net=NetworkModel(20.0),
+                                       prompt_len=PROMPT, max_seq=MAX_SEQ,
+                                       force_mode="transfer", device="cpu")
+        mgr.build_standby(3)
+    finally:
+        DecodeSession.warm_export = real
+    assert calls == [(0, 4)]
+    assert s.warm_export(0, 4) == 0
+    rep = mgr.repartition("switch_a", 3)
+    assert rep.handoff_mode == "transfer" and rep.handoff_bytes > 0
+    mgr.close()
