@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. kernel    — holds each kernel against its plain PyTorch version on the
                card.  flash_decode: the reference test grid, the full-width
                decode shapes (qwen2.5-3b's, zamba2-7b's D 112,
-               qwen2-moe-a2.7b's 16 KV heads, and mixtral-8x22b's 4096-row
-               ring of phase 9, 48 heads over 8), per-row
+               qwen2-moe-a2.7b's 16 KV heads, mixtral-8x22b's 4096-row
+               ring of phase 9, 48 heads over 8, internvl2-76b's 64 over
+               8, whisper-medium's 16 over 16 of D 64 at pos 1 ... 448),
+               per-row
                pos with a dead row (also at phase 7's slot-pool shape,
                B 4 at full width, its device time a call printed beside
                B 1's), size-1 pos vector == scalar.
@@ -21,9 +23,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                f32 and bf16, D 112, sequence-major views of heads-major K/V
                (strides, no copies), the full-width prefill shapes of
                qwen2.5-3b, zamba2-7b and qwen2-moe-a2.7b (1024 and 2048
-               tokens, causal, bf16) and their recompute-shaped call
-               (q_offset 1024, 300 queries), and mixtral-8x22b's windowed
-               prefill (6144 tokens, window 4096).
+               tokens, causal, bf16) and internvl2-76b (64 heads over 8)
+               and their recompute-shaped call (q_offset 1024, 300
+               queries), mixtral-8x22b's windowed prefill (6144 tokens,
+               window 4096), and whisper-medium's three attentions at D
+               64 in f32 and bf16: its encoder (1500 x 1500, non-causal,
+               a last key tile of 28 keys), its cross attention (448
+               queries against 1500 keys) and its decoder (448, causal).
                mamba1_scan and ssd_scan: the reference grids in f32 and
                bf16 with and without h0, state continuation (across chunk
                boundaries at full width too), and the full-width decode
@@ -43,10 +49,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and its wrapper's host time a call.
 4. slice     — for each of full-width qwen2.5-3b (36 layers),
                falcon-mamba-7b (64 mamba1 layers), zamba2-7b (81 mamba2
-               layers, 13 shared-attention applications) and
+               layers, 13 shared-attention applications),
                qwen2-moe-a2.7b (12 of its 24 layers, cut for memory: 60
-               routed experts top-4 and 4 shared, capacity factor 1.25),
-               in bf16 with
+               routed experts top-4 and 4 shared, capacity factor 1.25)
+               and internvl2-76b (6 of its 80 layers, cut for memory;
+               its stateful prompt is text only, as the reference serves
+               it), in bf16 with
                random weights from a seeded generator: serves the
                edge-cloud decode pipeline (prompt 1024, max_seq 2048) with
                every scan, the prefill and the recompute arm on the
@@ -76,8 +84,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                state is held against the plain route's recompute of the
                same prefix (chunked attention in place of the kernel), its
                distance to the decode-written state printed.
-6. stateless — one 1024-token prompt served through the stateless
-               edge-cloud pipeline (``StageRunner``), then repartitioned
+6. stateless — one 1024-row prompt served through the stateless
+               edge-cloud pipeline (``StageRunner``; internvl2-76b's
+               carries 256 seeded patch embeddings before 768 tokens, and
+               then runs the standalone ``transformer.prefill`` of the same
+               rows and 16 ``decode_step``s, every logit row held to
+               ``forward_hidden`` over the longer sequence within 5% of
+               the largest logit), then repartitioned
                under switch_b2, switch_a and pause_resume with a request
                after each; checks each kernel's launches per request, the
                downtime ordering, and logits bit-equal to the first
@@ -141,7 +154,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                launches (2 a prefill, 2 a step) and every logit row against
                the plain path and against the windowed full forward over
                the same tokens.
-10. report   — prints the script's wall, the ``kernels`` JSON line, the
+10. whisper  — whisper-medium at full depth (24 encoder and 24 decoder
+               layers, d_model 1024, 16 heads of 64), bf16, seeded
+               weights and frames: phase 6 with 448 tokens beside 1500
+               frames (the encoder in unit 0, its output riding every
+               boundary), splits 1/2 -> 1/4 -> 1/2 -> 3/4 of the decoder
+               depth, 72 flash_attention launches a request (24 encoder,
+               24 self, 24 cross); then the standalone ``prefill`` of 432
+               tokens with the frames and 16 ``decode_step``s, 24
+               flash_decode launches each (the cross attention is the
+               plain ``decode_attention``, as the reference's), every
+               logit row held to ``forward_hidden`` over the 448 tokens
+               within 5% of the largest logit; prints the request's and
+               the step's wall and busy time, the device time of the
+               step's plain cross attention, and the peak memory.
+11. report   — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -249,8 +276,13 @@ ZFULL = dict(B=1, H=32, KH=32, S=2048, D=112)    # zamba2-7b's shared attn
 MFULL = dict(B=1, H=16, KH=16, S=2048, D=128)    # qwen2-moe-a2.7b (MHA)
 # mixtral-8x22b's 4096-row ring (phase 9): 48 heads over 8 KV heads
 XFULL = dict(B=1, H=48, KH=8, S=4096, D=128)
+VFULL = dict(B=1, H=64, KH=8, S=2048, D=128)     # internvl2-76b (GQA 8)
+# whisper-medium's decoder self attention (phase 10): 16 heads of 64, no
+# GQA, a cache of its 448-token context
+WFULL = dict(B=1, H=16, KH=16, S=448, D=64)
 FULL_POS = (1, 17, 1024, 2048)
 RING_POS = (1, 2049, 4096)
+WHISPER_POS = (1, 17, 200, 448)
 TIMED_POS = 1024                                 # the served context length
 DEVICE_POS = (64, 1024, 2048)                    # device time a call read at
 DECODE_KERNEL = "flash_decode_kernel"            # its name in the profiler
@@ -291,9 +323,12 @@ def phase_kernel(FD, gen) -> dict:
         for B, H, KH, S, D, pos in GRID:
             compare(B, H, KH, S, D, pos, dtype)
         for pos in FULL_POS:
-            for full in (FULL, ZFULL, MFULL):
+            for full in (FULL, ZFULL, MFULL, VFULL):
                 compare(full["B"], full["H"], full["KH"], full["S"],
                         full["D"], pos, dtype)
+        for pos in WHISPER_POS:
+            compare(WFULL["B"], WFULL["H"], WFULL["KH"], WFULL["S"],
+                    WFULL["D"], pos, dtype)
         for pos in RING_POS:
             compare(XFULL["B"], XFULL["H"], XFULL["KH"], XFULL["S"],
                     XFULL["D"], pos, dtype)
@@ -319,7 +354,9 @@ def phase_kernel(FD, gen) -> dict:
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
 
     timed = [time_decode(FD, rand, **full)
-             for full in (FULL, ZFULL, MFULL, XFULL)]
+             for full in (FULL, ZFULL, MFULL, XFULL, VFULL)]
+    timed.append(time_decode(FD, rand, **WFULL, pos=WFULL["S"],
+                             device_pos=(1, WFULL["S"])))
     first = timed[0]                # qwen2.5-3b's decode shape
     slots_us = slot_device_us(FD, rand)
     print(f"[kernel] flash_decode at the slot pool's shape {SLOTS}, bf16, "
@@ -402,14 +439,15 @@ def decode_device_us(FD, qs, ks, vs, pos, reps: int = 40) -> dict:
     return sum(e.self_device_time_total for e in kern) / launches
 
 
-def time_decode(FD, rand, B, H, KH, S, D) -> dict:
+def time_decode(FD, rand, B, H, KH, S, D, pos: int = TIMED_POS,
+                device_pos: tuple = DEVICE_POS) -> dict:
     """Kernel, plain version and one library call at a full-width decode
-    shape, bf16, at the served context length, beside the bound; the
-    kernel's device time a call at ``DEVICE_POS`` (torch.profiler) and
-    the wrapper's host time a call.  Caches rotate over > 128 MB of
-    copies, so every launch finds its cache out of L2 as a decode step
-    does (a step streams every layer's weights and caches through L2
-    between two visits of one layer)."""
+    shape, bf16, at ``pos`` live rows (the served context length), beside
+    the bound; the kernel's device time a call at ``device_pos``
+    (torch.profiler) and the wrapper's host time a call.  Caches rotate
+    over > 128 MB of copies, so every launch finds its cache out of L2 as
+    a decode step does (a step streams every layer's weights and caches
+    through L2 between two visits of one layer)."""
     from repro_torch.core.hardware import H100
     dtype = torch.bfloat16
     per_call = 2 * B * KH * S * D * 2
@@ -417,8 +455,8 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
     qs = [rand((B, 1, H, D), dtype) for _ in range(n)]
     ks = [rand((B, KH, S, D), dtype) for _ in range(n)]
     vs = [rand((B, KH, S, D), dtype) for _ in range(n)]
-    pos_t = torch.tensor(TIMED_POS, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(S, device="cuda") < TIMED_POS)[None, None, None, :]
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda") < pos)[None, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library(i):
@@ -451,13 +489,13 @@ def time_decode(FD, rand, B, H, KH, S, D) -> dict:
         kernel(i)
     host_us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
-    device_us = {p: decode_device_us(FD, qs, ks, vs, p) for p in DEVICE_POS}
-    nbytes = FD.bound_bytes(qs[0], ks[0], TIMED_POS)
-    flops = 4 * B * H * TIMED_POS * D
+    device_us = {p: decode_device_us(FD, qs, ks, vs, p) for p in device_pos}
+    nbytes = FD.bound_bytes(qs[0], ks[0], pos)
+    flops = 4 * B * H * min(pos, S) * D
     t_bytes = nbytes / H100.hbm_bw * 1e3
     t_ops = flops / H100.flops * 1e3            # bf16 on the tensor cores
     out = {"shape": {"B": B, "H": H, "KH": KH, "S": S, "D": D,
-                     "pos": TIMED_POS, "dtype": "bfloat16"},
+                     "pos": pos, "dtype": "bfloat16"},
            "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
            "library_ms": lib_ms, "library_max_abs_err": lib_err,
            "bound_ms": max(t_bytes, t_ops),
@@ -484,7 +522,14 @@ FA_MASKS = [(True, None, 0), (True, 48, 0), (False, 24, 0), (True, None, 7)]
 FA_FULL = dict(B=1, H=16, KH=2, D=128)
 FA_ZFULL = dict(B=1, H=32, KH=32, D=112)        # zamba2-7b's shared attn
 FA_MFULL = dict(B=1, H=16, KH=16, D=128)        # qwen2-moe-a2.7b (MHA)
+FA_VFULL = dict(B=1, H=64, KH=8, D=128)         # internvl2-76b (GQA 8)
 FA_FULL_S = (1024, 2048)
+# whisper-medium (phase 10), 16 heads of 64, no GQA: (Sq, Sk, causal) of
+# its encoder over 1500 frames (the last key tile 28 of 64 keys), its
+# decoder's cross attention (448 queries against the 1500 frames) and
+# its decoder's self attention
+FA_WFULL = dict(B=1, H=16, KH=16, D=64)
+FA_WSHAPES = ((1500, 1500, False), (448, 1500, False), (448, 448, True))
 # mixtral-8x22b's windowed prefill (phase 9): 6144 tokens, window 4096
 FA_XFULL = dict(B=1, H=48, KH=8, D=128, S=6144, window=4096)
 
@@ -533,7 +578,13 @@ def phase_prefill_kernel(FA, gen) -> dict:
         compare(q, k.transpose(1, 2), v.transpose(1, 2), "strided K/V")
         # zamba2-7b's shared attention: D 112, MHA
         compare(*inputs(1, 70, 70, 4, 4, 112, dtype), "D 112", causal=True)
-    for full in (FA_FULL, FA_ZFULL, FA_MFULL):
+        # whisper-medium's three attentions at full width
+        B, H, KH, D = (FA_WFULL[x] for x in ("B", "H", "KH", "D"))
+        for Sq, Sk, causal in FA_WSHAPES:
+            compare(*inputs(B, Sq, Sk, H, KH, D, dtype),
+                    f"whisper H={H} KH={KH} D={D} Sq={Sq} Sk={Sk}",
+                    causal=causal)
+    for full in (FA_FULL, FA_ZFULL, FA_MFULL, FA_VFULL):
         B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
         for S in FA_FULL_S:
             compare(*inputs(B, S, S, H, KH, D, torch.bfloat16),
@@ -557,42 +608,48 @@ def phase_prefill_kernel(FA, gen) -> dict:
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
 
-    # timing at the full-width shapes, bf16, causal; inputs rotate over
-    # > 128 MB of copies, so no launch finds its inputs in the 50 MB L2
+    # timing at the full-width shapes, bf16; inputs rotate over > 128 MB
+    # of copies, so no launch finds its inputs in the 50 MB L2
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = []
-    shapes = [(full, S) for full in (FA_FULL, FA_ZFULL) for S in FA_FULL_S]
-    shapes += [(FA_MFULL, FA_FULL_S[0]), (FA_XFULL, FA_XFULL["S"])]
-    for full, S in shapes:
+    shapes = [(full, S, S, True) for full in (FA_FULL, FA_ZFULL)
+              for S in FA_FULL_S]
+    shapes += [(FA_MFULL, FA_FULL_S[0], FA_FULL_S[0], True),
+               (FA_XFULL, FA_XFULL["S"], FA_XFULL["S"], True),
+               (FA_VFULL, FA_FULL_S[0], FA_FULL_S[0], True)]
+    shapes += [(FA_WFULL,) + shape for shape in FA_WSHAPES]
+    for full, Sq, Sk, causal in shapes:
         B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
+        S = Sq
         W = full.get("window")
-        per_call = 2 * B * S * (H + KH) * D
+        per_call = 2 * B * (Sq * H + Sk * KH) * D
         n = max(2, -(-128 * 2 ** 20 // per_call))
-        sets = [inputs(B, S, S, H, KH, D, torch.bfloat16) for _ in range(n)]
+        sets = [inputs(B, Sq, Sk, H, KH, D, torch.bfloat16)
+                for _ in range(n)]
         # a window takes the library call an explicit mask: the band
         ar = torch.arange(S, device="cuda")
         band = None if W is None else \
             (ar[None, :] <= ar[:, None]) & (ar[None, :] > ar[:, None] - W)
 
         def kernel(i):
-            return FA.flash_attention(*sets[i % n], causal=True, window=W)
+            return FA.flash_attention(*sets[i % n], causal=causal, window=W)
 
         def plain(i):
-            return FA.flash_attention_plain(*sets[i % n], causal=True,
+            return FA.flash_attention_plain(*sets[i % n], causal=causal,
                                             window=W)
 
         def library(i):
             q, k, v = (t.transpose(1, 2) for t in sets[i % n])
             if band is None:
-                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
             return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
 
         # the library call computes the same function: hold it to the kernel
         ref = kernel(0)
         lib_err = max_diff(library(0).transpose(1, 2), ref)
         lib_tol = LIB_RTOL * ref.float().abs().max().item()
-        check(lib_err <= lib_tol, f"library yardstick disagrees at S={S}: "
-                                  f"{lib_err} > {lib_tol}")
+        check(lib_err <= lib_tol, f"library yardstick disagrees at Sq={Sq} "
+                                  f"Sk={Sk}: {lib_err} > {lib_tol}")
         iters = 20
         # plain, kernel, kernel, plain: compare the two within one call
         plain1 = cuda_ms(plain, iters)
@@ -601,12 +658,13 @@ def phase_prefill_kernel(FA, gen) -> dict:
         plain2 = cuda_ms(plain, iters)
         lib_ms = cuda_ms(library, iters)
         q, k, _ = sets[0]
-        t_ops = FA.bound_flops(q, k, causal=True, window=W) / H100.flops \
+        t_ops = FA.bound_flops(q, k, causal=causal, window=W) / H100.flops \
             * 1e3
         t_bytes = FA.bound_bytes(q, k) / H100.hbm_bw * 1e3
-        chain, mean = FA.schedule_chain(B, S, S, H, causal=True,
+        chain, mean = FA.schedule_chain(B, Sq, Sk, H, causal=causal,
                                         window=W, q_offset=0)
-        timed.append({"S": S, "H": H, "KH": KH, "D": D, "window": W,
+        timed.append({"S": S, "Sk": Sk, "causal": causal, "H": H, "KH": KH,
+                      "D": D, "window": W,
                       "ms": min(kern1, kern2),
                       "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
                       "library_max_abs_err": lib_err,
@@ -616,8 +674,8 @@ def phase_prefill_kernel(FA, gen) -> dict:
                       "runs_ms": {"kernel": [kern1, kern2],
                                   "plain": [plain1, plain2]}})
         t = timed[-1]
-        print(f"[kernel] flash_attention full-width bf16 causal H={H} "
-              f"KH={KH} D={D} S={S} window={W}: "
+        print(f"[kernel] flash_attention full-width bf16 causal={causal} "
+              f"H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} window={W}: "
               f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
               f"library {lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']}); schedule chain "
@@ -1053,13 +1111,23 @@ def expected(K: Counts, cfg, lo: int, hi: int, mode: str) -> dict:
     (one token) or "full" (a prefill, a recompute or a stateless request):
     one attention kernel per attention unit (flash_decode in a decode step,
     flash_attention in a full pass; the hybrid family's shared-attention
-    applications among them) and one scan kernel per mamba layer."""
+    applications among them) and one scan kernel per mamba layer.
+    Whisper's full pass over the whole model also runs its encoder (one
+    flash_attention a layer) and each decoder layer's cross attention
+    (another); its decode step's cross attention is the plain
+    ``decode_attention``, as the reference's."""
+    out = dict.fromkeys(K.wrappers, 0)
+    if cfg.family == "audio":
+        if mode == "decode":
+            out["flash_decode_attention"] = hi - lo
+        else:
+            out["flash_attention"] = cfg.encoder.num_layers + 2 * (hi - lo)
+        return out
     from repro_torch.core.stateful import unit_index_of_split, unit_list
     units = unit_list(cfg)[unit_index_of_split(cfg, lo):
                            unit_index_of_split(cfg, hi)]
     attn = sum(1 for kind, _ in units if kind == "app"
-               or cfg.family in ("dense", "moe"))
-    out = dict.fromkeys(K.wrappers, 0)
+               or cfg.family in ("dense", "moe", "vlm"))
     out["flash_decode_attention" if mode == "decode"
         else "flash_attention"] = attn
     if len(units) > attn:
@@ -1439,7 +1507,8 @@ def expert_weights(cfg, params) -> tuple:
 
 
 def request_bound_ms(cfg, params, tokens: int, extra_flops: int = 0,
-                     all_experts: bool = False) -> float:
+                     all_experts: bool = False,
+                     extra_bytes: int = 0) -> float:
     """Least time the card could take for one request of ``tokens`` tokens:
     the larger of every weight read once from device memory and the
     matrix products' operations (2 a weight a token: every layer matrix,
@@ -1448,10 +1517,12 @@ def request_bound_ms(cfg, params, tokens: int, extra_flops: int = 0,
     experts: a token's products use ``top_k`` of them, and the bytes count
     the experts the request can reach, ``min(E, tokens * top_k)`` of ``E``
     (``all_experts``: all of them, as the reference's dense layout reads
-    them at any token count)."""
+    them at any token count).  ``extra_bytes``: what else the request must
+    read (a decode step's caches)."""
     from repro_torch.core.hardware import H100
     from repro_torch.core.stages import tree_leaves
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(params)) + extra_bytes
     exp_n, exp_bytes = expert_weights(cfg, params)
     if exp_n and not all_experts:
         E = cfg.moe.num_experts
@@ -1717,22 +1788,85 @@ def phase_handoff(K, cfg, params, kw, tokens, ref_logits, splits) -> dict:
 # phase 6: the stateless path at full width
 # ---------------------------------------------------------------------------
 
+WHISPER_TOKENS = 448       # whisper's decoder context (its config)
+
+
+def stateless_request(cfg, seed: int) -> dict:
+    """Phase 6's request, made from ``seed``: ``PROMPT`` rows, of which
+    internvl2's first ``frontend_tokens`` are seeded patch embeddings (256
+    before 768 text tokens); for whisper ``WHISPER_TOKENS`` text tokens
+    beside its encoder's ``context_len`` seeded frames.  The embeddings
+    are bf16, the model's dtype (the encoder takes its dtype from the
+    frames)."""
+    gen = torch.Generator().manual_seed(seed)
+    text = WHISPER_TOKENS if cfg.family == "audio" \
+        else PROMPT - cfg.frontend_tokens
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (1, text),
+                                   generator=gen)}
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = torch.randn(
+            (1, cfg.frontend_tokens, cfg.d_model), generator=gen)
+    if cfg.frontend == "audio":
+        out["frames"] = torch.randn(
+            (1, cfg.encoder.context_len, cfg.d_model), generator=gen)
+    return {k: (v.to(torch.bfloat16) if v.is_floating_point() else v).cuda()
+            for k, v in out.items()}
+
+
+def attention_flops(cfg, rows: int, n_self: int) -> int:
+    """The attention's operations in one full pass over ``rows`` rows
+    (``flash_attention.bound_flops``): ``n_self`` causal self attentions,
+    and whisper's encoder over its frames and its cross attention against
+    them, both non-causal."""
+    from repro_torch.kernels import flash_attention as FA
+    if not cfg.num_heads:
+        return 0
+
+    def flops(Sq, Sk, causal):
+        q = torch.empty((1, Sq, cfg.num_heads, cfg.head_dim), device="meta")
+        k = torch.empty((1, Sk, cfg.num_kv_heads, cfg.head_dim),
+                        device="meta")
+        return FA.bound_flops(q, k, causal=causal)
+    out = n_self * flops(rows, rows, True)
+    if cfg.family == "audio":
+        T_enc = cfg.encoder.context_len
+        out += cfg.encoder.num_layers * flops(T_enc, T_enc, False) \
+            + cfg.num_layers * flops(rows, T_enc, False)
+    return out
+
+
+def frontend_flops(cfg, params, rows: int) -> int:
+    """The products ``request_bound_ms`` does not count at ``rows`` rows:
+    internvl2's ``vision_proj`` over its patches; whisper's encoder layers
+    over its frames, and its cross-attention K/V projections over the
+    frames rather than the text rows."""
+    if cfg.frontend == "vision":
+        return 2 * cfg.frontend_tokens * params["vision_proj"].numel()
+    if cfg.frontend != "audio":
+        return 0
+    from repro_torch.core.stages import tree_leaves
+    T_enc = cfg.encoder.context_len
+    enc = sum(t.numel() for t in tree_leaves(params["encoder"]["layers"])
+              if t.dim() == 3)
+    xkv = sum(params["layers"]["xattn"][k].numel() for k in ("wk", "wv"))
+    return 2 * T_enc * enc + 2 * (T_enc - rows) * xkv
+
+
 def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
-    """One ``PROMPT``-token prompt through the stateless edge-cloud
-    pipeline at unit split ``splits[0]`` (embedding + that many layers on
-    the edge), then switch_b2, switch_a and pause_resume (reloading phase
-    4's checkpoint) through ``splits[1:]``, with one request after each
+    """``stateless_request`` through the stateless edge-cloud pipeline at
+    unit split ``splits[0]`` (embedding, the frontend and that many layers
+    on the edge), then switch_b2, switch_a and pause_resume (reloading
+    ``ckpt``, phase 4's checkpoint; without one the pool writes its own,
+    deleted after) through ``splits[1:]``, with one request after each
     switch."""
     from repro_torch.core.network import NetworkModel
     from repro_torch.core.stages import StageRunner
     from repro_torch.core.switching import PipelineManager
-    from repro_torch.kernels import flash_attention as FA
 
     L = cfg.num_layers
     per_request = expected(K, cfg, 0, L, "full")
-    gen = torch.Generator().manual_seed(seed + 2)
-    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT),
-                                      generator=gen).cuda()}
+    prompt = stateless_request(cfg, seed + 2)
+    rows = prompt["tokens"].shape[1] + cfg.frontend_tokens
     request_ms = []         # edge + cloud wall of a request, unscaled
 
     def serve():
@@ -1753,7 +1887,7 @@ def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
     mgr = PipelineManager(runner, split=splits[0], net=NetworkModel(20.0),
                           sample_inputs=prompt, checkpoint_path=ckpt)
     first = serve()
-    check(tuple(first.shape) == (1, PROMPT, cfg.vocab_size)
+    check(tuple(first.shape) == (1, rows, cfg.vocab_size)
           and bool(torch.isfinite(first).all()),
           f"first request: logits {tuple(first.shape)}, finite "
           f"{bool(torch.isfinite(first).all())}")
@@ -1784,19 +1918,17 @@ def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
     for name, n in per_request.items():
         check(launches[name] >= 4 * n, f"{name} launched {launches[name]} "
                                        f"times over 4 requests")
-    attn_flops = 0
-    if cfg.num_heads:
-        q = torch.empty((1, PROMPT, cfg.num_heads, cfg.head_dim),
-                        device="meta")
-        k = torch.empty((1, PROMPT, cfg.num_kv_heads, cfg.head_dim),
-                        device="meta")
-        attn_flops = per_request["flash_attention"] \
-            * FA.bound_flops(q, k, causal=True)
-    bound = request_bound_ms(cfg, params, PROMPT, attn_flops)
+    n_self = cfg.num_layers if cfg.family == "audio" \
+        else per_request["flash_attention"]
+    bound = request_bound_ms(cfg, params, rows,
+                             attention_flops(cfg, rows, n_self)
+                             + frontend_flops(cfg, params, rows))
     logits, prof = profile_step(lambda: mgr.serve(prompt)[0], bound,
                                 device_kernels(cfg))
     check(torch.equal(logits, first), "profiled request's logits differ")
     shut(mgr)
+    if ckpt is None:
+        os.remove(mgr.checkpoint_path)
     med = sorted(request_ms)[len(request_ms) // 2]
     print(f"[stateless] launches {launches} ({per_request} a request); "
           f"request wall (edge + cloud, unscaled) median {med:.3f} ms of "
@@ -1807,6 +1939,106 @@ def phase_stateless(K, cfg, params, ckpt, seed, splits) -> dict:
             "downtime_s": {r.strategy: r.downtime for r in reps},
             "build_s": {r.strategy: r.t_build for r in reps},
             "logit_diff_from_first": diffs}
+
+
+STANDALONE_STEPS = 16
+
+
+def phase_standalone(K, cfg, params, prompt, extra, max_seq: int) -> dict:
+    """The standalone ``transformer.prefill`` of ``prompt`` (its frontend
+    inputs included) on the flash-attention kernel, then a
+    ``decode_step`` on the flash-decode kernel for each token of
+    ``extra`` (1, n); checks each kernel's launches (``expected``: a full
+    pass a prefill, a decode pass a step), the cache's ``pos`` (the
+    frontend's rows counted), and every logit row (the prefill's last,
+    then each step's) against ``forward_hidden`` over the whole sequence
+    (chunked attention), within ``LOGIT_RTOL`` of the largest logit.
+    Prints the prefill's wall, the steps' median wall, a profiled step
+    beside its bound (the weights a step reads, without the encoder and
+    ``vision_proj``, and every cache row it reads once) and the logit
+    distances."""
+    from repro_torch.core.stages import param_bytes
+    from repro_torch.models import transformer as T
+
+    L, F, n = cfg.num_layers, cfg.frontend_tokens, extra.shape[1]
+    P = prompt["tokens"].shape[1]
+    per_prefill = expected(K, cfg, 0, L, "full")
+    per_step = expected(K, cfg, 0, L, "decode")
+
+    # --- the main path, with the launch counts read around it ---------
+    K.reset()
+    before = K.read()
+    t = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, prompt, max_seq=max_seq,
+                              attn_impl="kernel")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    prefill_launches = K.since(before)
+    got, steps = [logits], []
+    for i in range(n):
+        before = K.read()
+        t = time.perf_counter()
+        logits, cache = T.decode_step(cfg, params, extra[:, i:i + 1], cache,
+                                      attn_impl="kernel")
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t) * 1e3,
+                      "launches": K.since(before)})
+        got.append(logits)
+    launches = K.read()
+    got = torch.cat(got).float()
+    check(prefill_launches == per_prefill,
+          f"{cfg.name} standalone: the prefill launched {prefill_launches}, "
+          f"want {per_prefill}")
+    check(all(st["launches"] == per_step for st in steps),
+          f"{cfg.name} standalone: decode steps launched "
+          f"{[st['launches'] for st in steps]}, want {per_step}")
+    check(int(cache["pos"]) == F + P + n,
+          f"{cfg.name} standalone: pos {int(cache['pos'])}, want "
+          f"{F + P + n}")
+    check(bool(torch.isfinite(got).all()),
+          f"{cfg.name} standalone: non-finite logits")
+    step_ms = sorted(st["ms"] for st in steps)[n // 2]
+    read = {k: v for k, v in params.items()
+            if k not in ("encoder", "vision_proj")}
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    # whisper's cross K/V whole, the self-attention K/V's live rows
+    cache_bytes = sum(nbytes(cache[k]) for k in ("ck", "cv") if k in cache) \
+        + 2 * nbytes(cache["k"][:, :, :, :F + P + n])
+    _, prof = profile_step(
+        lambda: T.decode_step(cfg, params, extra[:, n - 1:n],
+                              {k: (v.clone() if k != "pos" else v)
+                               for k, v in cache.items()},
+                              attn_impl="kernel")[0],
+        request_bound_ms(cfg, read, 1, extra_bytes=cache_bytes),
+        device_kernels(cfg))
+
+    # --- the oracle: the full forward over the whole sequence ---------
+    whole = dict(prompt, tokens=torch.cat([prompt["tokens"], extra], 1))
+    h, _, _ = T.forward_hidden(cfg, params, whole, attn_impl="chunked")
+    full = (h[0, F + P - 1:] @ T.lm_head_weights(cfg, params)).float()
+    del h
+    scale = full.abs().max().item()
+    diffs = (got - full).abs().max(-1).values.tolist()
+    limit = LOGIT_RTOL * scale
+    print(f"[standalone] {cfg.name}: prefill of {F} + {P} rows "
+          f"{prefill_ms:.1f} ms launched {prefill_launches}; {n} decode "
+          f"steps (max_seq {max_seq}), median {step_ms:.3f} ms, each "
+          f"launched {per_step}; max |logit diff| by row (prefill, then "
+          f"each step) against the full forward {diffs} (limit "
+          f"{limit:.3e} = {LOGIT_RTOL} of {scale:.3e}); profiled step "
+          f"(weights {param_bytes(read)} B, caches {cache_bytes} B): "
+          f"{prof}")
+    check(max(diffs) <= limit, f"{cfg.name} standalone: logits differ from "
+                               f"the full forward by {max(diffs)} "
+                               f"(> {limit})")
+    del cache
+    return {"prompt_rows": F + P, "max_seq": max_seq, "launches": launches,
+            "launches_per_prefill": prefill_launches,
+            "launches_per_step": per_step, "prefill_ms": prefill_ms,
+            "step_ms": [st["ms"] for st in steps], "step_ms_median": step_ms,
+            "profiled_step": prof, "max_logit_diff_vs_full_forward": diffs,
+            "logit_limit": limit}
 
 
 # ---------------------------------------------------------------------------
@@ -2541,18 +2773,25 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
 
 # (arch, layer splits 1/2 -> 1/4 -> 1/2 -> 3/4 of the depth); zamba2's
 # 20 -> 40 and 40 -> 60 moves carry shared-attention applications across
-MODELS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b")
-# depth cut for memory: qwen2-moe-a2.7b's 24 layers are 28.6 GB in bf16,
-# and phases 4-6 hold up to four weight copies on the card (the
-# runner's, a standby's and its successor, a pause_resume reload); 12
-# layers are 14.9 GB, about falcon-mamba-7b's
-DEPTH = {"qwen2-moe-a2.7b": 12}
+MODELS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b",
+          "internvl2-76b")
+# depth cut for memory: phases 4-6 hold up to four weight copies on the
+# card (the runner's, a standby's and its successor, a pause_resume
+# reload), so a model runs at about falcon-mamba-7b's 14.6 GB:
+# qwen2-moe-a2.7b's 24 layers are 28.6 GB in bf16, 12 are 14.9 GB;
+# internvl2-76b's 80 are 141 GB (1.71 GB a layer, 4.33 GB of embedding,
+# untied head and vision_proj), 6 are 14.6 GB
+DEPTH = {"qwen2-moe-a2.7b": 12, "internvl2-76b": 6}
 
 
 def run_model(K, arch, seed, gclog: GcLog) -> dict:
     """Full-width ``arch`` in bf16 (random weights from a generator seeded
     with ``seed``) through the stateful decode path, both hand-off arms
-    and the stateless path; frees the weights and the checkpoint after."""
+    and the stateless path (a vision model's request carries its seeded
+    patch embeddings; its stateful prompt is text only, as the reference
+    serves it), then for a vision model the standalone prefill of the
+    same request and ``STANDALONE_STEPS`` decode steps; frees the weights
+    and the checkpoint after."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -2592,6 +2831,16 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
         gclog.label = f"{arch} phase 6"
         st = phase_stateless(K, cfg, params, ckpt, seed, splits)
         free_memory()
+        sa = None
+        if cfg.frontend == "vision":
+            gclog.label = f"{arch} standalone"
+            tg = torch.Generator().manual_seed(seed + 5)
+            extra = torch.randint(0, cfg.vocab_size, (1, STANDALONE_STEPS),
+                                  generator=tg).cuda()
+            sa = phase_standalone(K, cfg, params,
+                                  stateless_request(cfg, seed + 2), extra,
+                                  MAX_SEQ)
+            free_memory()
         sv = None
         if arch == SERVE_ARCH:
             t7 = time.perf_counter()
@@ -2617,7 +2866,111 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
            "left_device_bytes": left, "stateful": sl, "stateless": st}
     if sv is not None:
         out["serving"] = sv
+    if sa is not None:
+        out["standalone"] = sa
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: whisper-medium at full depth
+# ---------------------------------------------------------------------------
+
+def cross_attention_share(cfg, step_prof: dict) -> dict:
+    """The device time a whisper decode step spends in its cross
+    attention, the plain ``layers.decode_attention`` of one query token
+    against each layer's ``context_len`` cross K/V rows (bf16, the step's
+    shapes and route, random values), read by the profiler as a step is
+    (``profile_step``), beside the profiled step's busy time."""
+    from repro_torch.models import layers as Lyr
+    L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    T_enc = cfg.encoder.context_len
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ck, cv = (torch.randn((L, 1, KH, T_enc, hd), generator=gen,
+                          device="cuda", dtype=torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((1, 1, cfg.num_heads, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def cross():
+        return [Lyr.decode_attention(q, ck[li], cv[li], pos=T_enc)
+                for li in range(L)][-1]
+    cross()
+    from repro_torch.core.hardware import H100
+    # the least time: the cross K/V read once
+    bound = 2 * ck.numel() * ck.element_size() / H100.hbm_bw * 1e3
+    _, prof = profile_step(cross, bound, ())
+    busy = step_prof.get("device_busy_ms")
+    out = {"device_busy_ms": prof.get("device_busy_ms"),
+           "wall_ms": prof.get("wall_ms"),
+           "device_ops": prof.get("device_ops"), "bound_ms": bound,
+           "step_device_busy_ms": busy}
+    if busy and out["device_busy_ms"] is not None:
+        out["share_of_step_busy"] = out["device_busy_ms"] / busy
+    print(f"[whisper] the decode step's plain cross attention ({L} layers "
+          f"against {T_enc} rows): {out}")
+    return out
+
+
+WHISPER_ARCH = "whisper-medium"
+
+
+def phase_whisper(K, seed, gclog: GcLog) -> dict:
+    """whisper-medium at full depth (24 encoder and 24 decoder layers,
+    d_model 1024, 16 heads of 64), bf16, random weights and frames from
+    seeded generators.  The stateless pipeline (phase 6's
+    ``phase_stateless``): ``WHISPER_TOKENS`` tokens beside the 1500
+    frames, the encoder in the edge's unit 0 and its output riding every
+    boundary, splits 1/2 -> 1/4 -> 1/2 -> 3/4 of the decoder depth under
+    switch_b2, switch_a and pause_resume (a checkpoint the pool writes and
+    this phase deletes); checks the downtime order, logits bit-equal to
+    the first request's after every switch, and 72 flash_attention
+    launches a request (24 encoder, 24 self, 24 cross).  Then the
+    standalone functions: ``prefill`` of the first ``WHISPER_TOKENS -
+    STANDALONE_STEPS`` tokens with the frames and ``STANDALONE_STEPS``
+    decode steps, 24 flash_decode launches each (the cross attention is
+    the plain ``decode_attention``, as the reference's), every logit row
+    held to ``forward_hidden`` over the whole sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.stages import param_bytes
+    from repro_torch.models.transformer import init_model
+
+    gclog.label = f"{WHISPER_ARCH} phase 10"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER_ARCH)
+    L = cfg.num_layers
+    splits = [L // 2, L // 4, L // 2, (3 * L) // 4]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_model(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    nbytes = param_bytes(params)
+    st = phase_stateless(K, cfg, params, None, seed, splits)
+    free_memory()
+    request = stateless_request(cfg, seed + 2)
+    P = WHISPER_TOKENS - STANDALONE_STEPS
+    sa = phase_standalone(K, cfg, params,
+                          dict(request, tokens=request["tokens"][:, :P]),
+                          request["tokens"][:, P:], WHISPER_TOKENS)
+    sa["cross_attention"] = cross_attention_share(cfg, sa["profiled_step"])
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    free_memory()
+    wall = time.perf_counter() - t0
+    req, step = st["profiled_request"], sa["profiled_step"]
+    print(f"[whisper] {WHISPER_ARCH}: {cfg.encoder.num_layers} + {L} layers "
+          f"(full depth), d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, bf16, {nbytes} B of weights; request "
+          f"({WHISPER_TOKENS} tokens, {cfg.encoder.context_len} frames) "
+          f"wall median {st['request_ms_median']:.3f} ms, busy "
+          f"{req.get('device_busy_ms')} ms; decode step wall median "
+          f"{sa['step_ms_median']:.3f} ms, busy "
+          f"{step.get('device_busy_ms')} ms, of it the plain cross "
+          f"attention's {sa['cross_attention'].get('device_busy_ms')} ms; "
+          f"downtimes {st['downtime_s']}; "
+          f"peak device memory {peak} B; {wall:.1f} s")
+    return {"arch": WHISPER_ARCH, "num_layers": L,
+            "encoder_layers": cfg.encoder.num_layers, "splits": splits,
+            "weight_bytes": nbytes, "stateless": st, "standalone": sa,
+            "peak_device_bytes": peak, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2823,9 +3176,13 @@ def main() -> None:
     cnns = [phase_cnn(K, arch, args.seed, gclog) for arch in CNN_ARCHS]
     # phase 9: mixtral's windowed ring through the standalone functions
     window = phase_window(K, args.seed, gclog)
+    # phase 10: whisper-medium at full depth
+    whisper = phase_whisper(K, args.seed, gclog)
     check("jax" not in sys.modules, "the port imported jax")
-    paths = [(f"{m['arch']} {path}", m[path]["launches"]) for m in models
-             for path in ("stateful", "stateless", "serving") if path in m]
+    paths = [(f"{m['arch']} {path}", m[path]["launches"])
+             for m in models + [whisper]
+             for path in ("stateful", "stateless", "serving", "standalone")
+             if path in m]
     paths.append((f"{WINDOW_ARCH} window", window["launches"]))
     for name, row in rows.items():
         by_path = {path: n[name] for path, n in paths if n[name]}
@@ -2833,14 +3190,15 @@ def main() -> None:
         row["launches_by_path"] = by_path
         check(row["launches"] > 0, f"{name} never launched on a main path")
 
-    # phase 10: report
+    # phase 11: report
     wall = time.perf_counter() - t_start
     print(f"[done] the whole script took {wall:.1f} s; garbage "
           f"collections {gclog.summary()}; flash_decode device-time traces "
           f"{DECODE_TRACES}")
     print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
                       "wall_s": wall, "decode_traces": DECODE_TRACES,
-                      "models": models, "cnn": cnns, "window": window}))
+                      "models": models, "cnn": cnns, "window": window,
+                      "whisper": whisper}))
 
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,7 @@
-"""Registry mapping --arch ids to the configs the port runs.
-
-Only the architectures whose slice has been ported are listed; whisper
-(``audio``) and internvl2 (``vlm``) arrive with theirs (see ROADMAP.md,
-Queue A).  The paper's own CNNs
-(``PAPER_ARCHS``) give a ``CNNConfig``, every other id an ``ArchConfig``.
+"""Registry mapping --arch ids to the configs the port runs: every
+architecture of the reference's registry, each a copy of its config
+module.  The paper's own CNNs (``PAPER_ARCHS``) give a ``CNNConfig``,
+every other id an ``ArchConfig``.
 """
 from __future__ import annotations
 
@@ -22,6 +20,8 @@ _MODULES: Dict[str, str] = {
     "mixtral-8x22b": "mixtral_8x22b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "zamba2-7b": "zamba2_7b",
+    "internvl2-76b": "internvl2_76b",
+    "whisper-medium": "whisper_medium",
     # the paper's own models (Figs. 2-3)
     "vgg19": "vgg19",
     "mobilenetv2": "mobilenetv2",

@@ -1,10 +1,12 @@
 """Stage-wise model execution: the "sequence of layers" abstraction.
 
-The counterpart of ``repro/core/stages.py`` for the dense, moe, ssm and
-hybrid families.  A model
-is a list of UNITS: unit 0 = embedding, units 1..L = decoder layers, unit
-L+1 = LM head.  A split after unit ``k`` puts units [0, k] on the edge stage
-and (k, N) on the cloud stage; the boundary tensor is the hidden state.
+The counterpart of ``repro/core/stages.py`` for every family.  A model
+is a list of UNITS: unit 0 = embedding (+frontend/encoder), units 1..L =
+decoder layers, unit L+1 = LM head.  A split after unit ``k`` puts units
+[0, k] on the edge stage and (k, N) on the cloud stage; the boundary
+tensor is the hidden state (plus, for whisper, the encoder context ``enc``
+— the encoder itself is ONE unit, the paper's rule that parallel paths
+are not split).
 
 ``abstractify``/``aval_fingerprint`` turn a nested structure of tensors
 into ``TensorSpec``s (shape, dtype, device) and a hashable key over
@@ -155,8 +157,8 @@ class _BuiltStageCache:
 
 
 class StageRunner(_BuiltStageCache):
-    """Executes unit ranges [lo, hi) of a dense, moe, ssm or hybrid model
-    for full-sequence inference.
+    """Executes unit ranges [lo, hi) of a model for full-sequence
+    inference.
 
     ``params`` are placed on ``device``, which defaults to the card and
     raises without one unless the caller asks for ``"cpu"``.
@@ -164,7 +166,10 @@ class StageRunner(_BuiltStageCache):
     hybrid family's shared block (``layers.attention``): ``"kernel"`` (or
     the reference's ``"pallas"``) runs the hand-written flash-attention
     kernel.  Every mamba layer's scan runs the scan kernels
-    (``models.ssm``); the reference's stateless path runs its jnp scan."""
+    (``models.ssm``); the reference's stateless path runs its jnp scan.
+    Whisper's encoder runs in unit 0 on ``frames`` (their dtype is the
+    encoder's: give them in the model's); internvl2's ``vision_embeds``
+    are projected and prepended there."""
 
     def __init__(self, cfg: ArchConfig, params, attn_impl: str = "chunked",
                  *, device="cuda"):
@@ -192,18 +197,28 @@ class StageRunner(_BuiltStageCache):
                     i: int) -> Dict[str, Any]:
         cfg = self.cfg
         if i == 0:
-            return {"h": T.embed_inputs(cfg, params, state)}
+            x = T.embed_inputs(cfg, params, state)
+            if cfg.family == "audio":
+                x = x + T.text_positions(cfg, x.shape[1], x.device).to(
+                    x.dtype)
+                enc = T.encode_audio(cfg, params, state["frames"],
+                                     attn_impl=self.attn_impl, remat=False)
+                return {"h": x, "enc": enc}
+            return {"h": x}
         if i == self.num_units - 1:
             x = T._apply_norm(cfg, params["final_norm"], state["h"])
             return {"logits": (x @ T.lm_head_weights(cfg, params)).float()}
         li = i - 1                                   # decoder layer i - 1
         x = state["h"]
         lp = layer_params(params, li)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm", "audio"):
             rope_cs = T._rope_for(cfg, x.shape[1], device=x.device)
             x, _, _ = T.attn_block_full(cfg, lp, x, rope_cs,
                                         impl=self.attn_impl,
                                         window=cfg.sliding_window)
+            if cfg.family == "audio":
+                ckv = T._enc_cross_kv(cfg, lp, state["enc"])
+                x = T.cross_block_full(cfg, lp, x, ckv, impl=self.attn_impl)
         else:
             y, _ = SSM.ssm_block(cfg, lp["mamba"],
                                  T._apply_norm(cfg, lp["ln"], x))
@@ -229,23 +244,41 @@ class StageRunner(_BuiltStageCache):
     def stage_out_avals(self, lo: int, hi: int, params, state):
         """Specs of the output of units [lo, hi) for inputs shaped like
         ``state``, worked out from the unit layout (nothing runs; the
-        reference traces with ``eval_shape``)."""
+        reference traces with ``eval_shape``): the hidden has the vision
+        frontend's rows before the text's, and whisper's ``enc`` ``(B,
+        T_enc, d_model)`` in the frames' dtype rides every boundary."""
+        cfg = self.cfg
         spec = abstractify(state)
         if lo == 0:
             B, S = spec["tokens"].shape
-            h = TensorSpec((B, S, self.cfg.d_model), params["embed"].dtype,
-                           params["embed"].device)
+            if cfg.frontend == "vision":
+                S += spec["vision_embeds"].shape[1]
+            emb = params["embed"]
+            out = {"h": TensorSpec((B, S, cfg.d_model), emb.dtype,
+                                   emb.device)}
+            if cfg.family == "audio":
+                f = spec["frames"]
+                out["enc"] = TensorSpec(f.shape[:2] + (cfg.d_model,),
+                                        f.dtype, f.device)
         else:
-            h = spec["h"]
+            out = dict(spec)
         if hi == self.num_units:
-            return {"logits": TensorSpec(h.shape[:2] + (self.cfg.vocab_size,),
+            h = out["h"]
+            return {"logits": TensorSpec(h.shape[:2] + (cfg.vocab_size,),
                                          torch.float32, h.device)}
-        return {"h": h}
+        return out
 
     def boundary_bytes(self, split: int, batch: int, seq: int,
                        act_bytes: int = 4) -> int:
-        """Bytes crossing the link for a split after unit ``split``."""
-        return batch * seq * self.cfg.d_model * act_bytes
+        """Bytes crossing the link for a split after unit ``split``: the
+        hidden at ``seq`` rows, and whisper's encoder context.  Like the
+        reference's, it counts no vision-frontend rows (the pipeline
+        passes the text length as ``seq``; ROADMAP.md, Queue C)."""
+        cfg = self.cfg
+        n = batch * seq * cfg.d_model * act_bytes
+        if cfg.family == "audio":
+            n += batch * cfg.encoder.context_len * cfg.d_model * act_bytes
+        return n
 
 
 class CnnStageRunner(_BuiltStageCache):

@@ -1,9 +1,10 @@
 """Stateful dynamic switching: live KV/SSM state hand-off at repartition.
 
 The PyTorch counterpart of ``repro/core/stateful.py`` for the dense, moe,
-ssm and hybrid families; ``vlm`` raises ``NotImplementedError`` naming
-the slice that brings it.  A decode pipeline is stateful: every layer
-carries per-stream decode state (a KV cache for attention layers, conv +
+vlm, ssm and hybrid families (``vlm`` as a dense model: the stateful path
+embeds text tokens only, as the reference's does; ``audio`` is refused
+with the reference's ``ValueError``).  A decode pipeline is stateful:
+every layer carries per-stream decode state (a KV cache for attention layers, conv +
 SSM state for mamba layers, a KV cache for each application of the hybrid
 family's shared attention block), and when the split moves from ``a`` to
 ``b`` the state of layers ``[min(a,b), max(a,b))`` changes sides.
@@ -94,20 +95,14 @@ from repro_torch.models import transformer as T
 if TYPE_CHECKING:
     from repro_torch.serving.sessions import SessionManager
 
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "moe", "vlm")
 _SUPPORTED = _ATTN_FAMILIES + ("ssm", "hybrid")
-_LATER = {"vlm": "the remaining-families slice (internvl2's frontend "
-                 "tokens)"}
 _DECODE_IMPLS = ("auto", "kernel", "reference")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _SUPPORTED:
-        return
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"stateful serving of {cfg.family!r} "
-                                  f"arrives with {_LATER[cfg.family]}")
-    raise ValueError(f"stateful serving unsupported for {cfg.family!r}")
+    if cfg.family not in _SUPPORTED:
+        raise ValueError(f"stateful serving unsupported for {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Transformer layers: norms, RoPE, attention, MLP and MoE.
+"""Transformer layers: norms, RoPE and sinusoidal positions, attention,
+MLP and MoE.
 
 The PyTorch counterpart of ``repro/models/layers.py``: plain functions on
 tensors, params as plain dicts with the reference's keys and ``(in, out)``
@@ -39,6 +40,16 @@ def rms_norm(x, scale, eps=1e-5):
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Mean and (biased) variance in f32, the normalised value cast back
+    to ``x``'s dtype, then scale and bias in that dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -63,6 +74,27 @@ def apply_rope(x, cos, sin):
         sin = sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None):
+    """(seq_len, d_model) f32 sinusoidal table (whisper's absolute
+    positions)."""
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
+
+
+def sinusoidal_at(pos: torch.Tensor, d_model: int):
+    """pos: (...,) int -> (..., d_model) f32: sin of ``pos / 10000 **
+    (2i / d_model)`` in column 2i, cos in column 2i + 1."""
+    # the exponents in f32, their powers rounded once from f64 (as XLA's)
+    dim = np.arange(0, d_model, 2, dtype=np.float32) / np.float32(d_model)
+    denom = torch.from_numpy(
+        np.power(10000.0, dim.astype(np.float64)).astype(np.float32))
+    ang = pos[..., None].float() / denom.to(pos.device)
+    out = torch.empty(pos.shape + (d_model,), dtype=torch.float32,
+                      device=pos.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """Decoder models: init, the full-sequence blocks, and the standalone
 entry points ``forward_hidden``, ``prefill`` and ``decode_step``.
 
-The PyTorch counterpart of ``repro/models/transformer.py`` for the dense,
-moe (attention + ``layers.moe_layer``), ssm (stacked mamba1 layers) and
-hybrid (stacked mamba2 layers plus one shared attention+MLP layer,
-``params["shared"]``) families; ``vlm`` and ``audio`` raise
-``NotImplementedError`` naming the slice that brings them, and
-``train_loss`` waits for the training slice.  Params are a nested dict of
+The PyTorch counterpart of ``repro/models/transformer.py`` for every
+family: dense, moe (attention + ``layers.moe_layer``), vlm (dense layers
+behind stub patch embeddings projected by ``vision_proj`` and prepended to
+the text), ssm (stacked mamba1 layers), hybrid (stacked mamba2 layers plus
+one shared attention+MLP layer, ``params["shared"]``) and audio (whisper:
+a bidirectional encoder over stub frame embeddings, ``params["encoder"]``,
+and decoder layers with self and cross attention, LayerNorms with bias and
+sinusoidal absolute positions in place of RoPE).  ``train_loss`` waits
+for the training slice.  Params are a nested dict of
 tensors with the reference's keys, shapes and ``(in, out)`` layout; the
 per-layer weights are stacked on a leading L axis
 (``params["layers"]["attn"]["wq"]`` is ``(L, d_model, H * head_dim)``), so
@@ -42,25 +45,18 @@ from repro_torch.kernels import flash_decode as FD
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_ATTN_FAMILIES = ("dense", "moe")
-_LATER = {"vlm": "the remaining-families slice (internvl2's frontend "
-                 "tokens)",
-          "audio": "the remaining-families slice (whisper's encoder and "
-                   "cross-attention)"}
+_ATTN_FAMILIES = ("dense", "moe", "vlm")
+_PORTED_FAMILIES = _ATTN_FAMILIES + ("ssm", "hybrid", "audio")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family in _PORTED_FAMILIES:
-        return
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"family {cfg.family!r} arrives with "
-                                  f"{_LATER[cfg.family]}; see ROADMAP.md "
-                                  f"Queue A")
-    raise ValueError(cfg.family)
+    if cfg.family not in _PORTED_FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def _apply_norm(cfg, p, x):
+    if cfg.family == "audio":
+        return Lyr.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return Lyr.rms_norm(x, p["scale"], cfg.norm_eps)
 
 
@@ -111,9 +107,42 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
     return x + ff, (k, v), aux
 
 
+def cross_block_full(cfg, p, x, enc_kv, *, impl):
+    """Cross-attention sublayer (whisper's decoder): the normed hidden's
+    queries against the encoder's ``enc_kv``, non-causal."""
+    h = _apply_norm(cfg, p["ln_x"], x)
+    B, S, _ = h.shape
+    q = (h @ p["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    ck, cv = enc_kv
+    att = Lyr.attention(q, ck, cv, causal=False, impl=impl)
+    return x + att.reshape(B, S, -1) @ p["xattn"]["wo"]
+
+
+def _enc_cross_kv(cfg, p, enc_out):
+    """K/V of the encoder output under a decoder layer's cross-attention
+    weights, sequence-major ``(B, T_enc, KH, hd)``."""
+    B, S, _ = enc_out.shape
+    ck = (enc_out @ p["xattn"]["wk"]).reshape(B, S, cfg.num_kv_heads,
+                                              cfg.head_dim)
+    cv = (enc_out @ p["xattn"]["wv"]).reshape(B, S, cfg.num_kv_heads,
+                                              cfg.head_dim)
+    return ck, cv
+
+
 def embed_inputs(cfg, params, inputs):
-    """Token embedding (the ported families have no frontend): (B, S, D)."""
-    return params["embed"][inputs["tokens"]]
+    """Token embedding, after the projected patch embeddings for the
+    vision frontend: (B, frontend_tokens + S, D)."""
+    x = params["embed"][inputs["tokens"]]
+    if cfg.frontend == "vision":
+        vis = inputs["vision_embeds"] @ params["vision_proj"]
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
+
+
+def text_positions(cfg, S: int, device=None):
+    """Whisper's decoder positions (``sinusoidal_positions``) as an f32
+    ``(1, S, d_model)`` table, added to the token embedding."""
+    return Lyr.sinusoidal_positions(S, cfg.d_model, device=device)[None]
 
 
 def lm_head_weights(cfg, params):
@@ -121,7 +150,10 @@ def lm_head_weights(cfg, params):
 
 
 def _rope_for(cfg, S, offset=0, device=None):
-    """RoPE tables of positions ``offset .. offset + S - 1``."""
+    """RoPE tables of positions ``offset .. offset + S - 1``; None for
+    whisper, whose positions are sinusoidal and absolute."""
+    if cfg.family == "audio":
+        return None
     pos = offset + torch.arange(S, device=device)
     return Lyr.rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
 
@@ -147,19 +179,35 @@ def init_moe_params(cfg, normal, lead=()):
     return p
 
 
-def _decoder_layer(cfg, normal, ones, zeros, lead=()):
-    """One attention decoder layer's weights (``init_decoder_layer``),
-    each with the leading dims ``lead`` (``(L,)`` for a stack): an MoE
-    sublayer (``"moe"``) in place of the MLP where the config has one."""
-    d, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+def _norm_params(cfg, ones, zeros, lead=()):
+    """A norm's weights: a scale, and for whisper's LayerNorm a bias."""
+    p = {"scale": ones(*lead, cfg.d_model)}
+    if cfg.family == "audio":
+        p["bias"] = zeros(*lead, cfg.d_model)
+    return p
+
+
+def _attn_params(cfg, normal, zeros, lead=()):
+    d, hd = cfg.d_model, cfg.head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     attn = {"wq": normal(*lead, d, H * hd), "wk": normal(*lead, d, KH * hd),
             "wv": normal(*lead, d, KH * hd), "wo": normal(*lead, H * hd, d)}
     if cfg.qkv_bias:
         attn.update(bq=zeros(*lead, H * hd), bk=zeros(*lead, KH * hd),
                     bv=zeros(*lead, KH * hd))
-    layer = {"ln1": {"scale": ones(*lead, d)}, "attn": attn,
-             "ln2": {"scale": ones(*lead, d)}}
+    return attn
+
+
+def _decoder_layer(cfg, normal, ones, zeros, lead=(), *, cross=False):
+    """One attention decoder layer's weights (``init_decoder_layer``),
+    each with the leading dims ``lead`` (``(L,)`` for a stack): an MoE
+    sublayer (``"moe"``) in place of the MLP where the config has one,
+    and with ``cross`` whisper's cross attention (``"ln_x"``,
+    ``"xattn"``)."""
+    d, F = cfg.d_model, cfg.d_ff
+    layer = {"ln1": _norm_params(cfg, ones, zeros, lead),
+             "attn": _attn_params(cfg, normal, zeros, lead),
+             "ln2": _norm_params(cfg, ones, zeros, lead)}
     if cfg.moe is not None:
         layer["moe"] = init_moe_params(cfg, normal, lead)
     elif cfg.gated_mlp:
@@ -169,6 +217,9 @@ def _decoder_layer(cfg, normal, ones, zeros, lead=()):
     else:
         layer["mlp"] = {"w_up": normal(*lead, d, F),
                         "w_down": normal(*lead, F, d)}
+    if cross:
+        layer["ln_x"] = _norm_params(cfg, ones, zeros, lead)
+        layer["xattn"] = _attn_params(cfg, normal, zeros, lead)
     return layer
 
 
@@ -180,10 +231,13 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     attention/MLP matrix, ones for norm scales, zeros for QKV biases, and
     ``models.ssm``'s initialisation of the mamba blocks (their ``dt_bias``,
     ``A_log`` and ``D`` in f32 whatever ``dtype``, as the MoE router).
-    The ``dense`` and ``moe`` families stack attention decoder layers
-    (``moe`` with an MoE sublayer in place of the MLP); the ``ssm`` family
-    stacks mamba1 layers; ``hybrid`` stacks mamba2 layers and adds
-    ``params["shared"]``, one attention decoder layer.
+    The ``dense``, ``moe`` and ``vlm`` families stack attention decoder
+    layers (``moe`` with an MoE sublayer in place of the MLP); the ``ssm``
+    family stacks mamba1 layers; ``hybrid`` stacks mamba2 layers and adds
+    ``params["shared"]``, one attention decoder layer; ``audio`` stacks
+    decoder layers with cross attention and adds ``params["encoder"]``
+    (``"layers"``, ``"final_norm"``).  The vision frontend adds
+    ``params["vision_proj"]`` ``(d_model, d_model)``.
 
     ``generator`` draws every tensor in a fixed order; without one, a
     generator on ``device`` seeded with ``seed`` is made.  The numbers
@@ -211,11 +265,21 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     params: Dict[str, Any] = {"embed": normal(cfg.vocab_size, d),
-                              "final_norm": {"scale": ones(d)}}
+                              "final_norm": _norm_params(cfg, ones, zeros)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(d, cfg.vocab_size)
+    if cfg.frontend == "vision":
+        params["vision_proj"] = normal(d, d)
     if cfg.family in _ATTN_FAMILIES:
         params["layers"] = _decoder_layer(cfg, normal, ones, zeros, (L,))
+        return params
+    if cfg.family == "audio":
+        params["layers"] = _decoder_layer(cfg, normal, ones, zeros, (L,),
+                                          cross=True)
+        params["encoder"] = {
+            "layers": _decoder_layer(cfg, normal, ones, zeros,
+                                     (cfg.encoder.num_layers,)),
+            "final_norm": _norm_params(cfg, ones, zeros)}
         return params
     if cfg.ssm.kind == "mamba1":
         mamba = SSM.init_mamba1(cfg, normal, uniform, dtype, dev, (L,))
@@ -239,15 +303,32 @@ def layer_params(params, idx: int):
     return walk(params["layers"])
 
 
+def encode_audio(cfg, params, frames, *, attn_impl="chunked", remat=True):
+    """Whisper's encoder over stub frame embeddings ``(B, T_enc, D)``:
+    sinusoidal positions added in ``frames``' dtype, every encoder layer
+    non-causal, then the encoder's final norm."""
+    x = frames + Lyr.sinusoidal_positions(
+        frames.shape[1], cfg.d_model, device=frames.device).to(
+            frames.dtype)[None]
+    enc = params["encoder"]
+    for li in range(cfg.encoder.num_layers):
+        lp = layer_params(enc, li)
+        x, _, _ = attn_block_full(cfg, lp, x, None, impl=attn_impl,
+                                  causal=False)
+    return _apply_norm(cfg, enc["final_norm"], x)
+
+
 def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
                    remat=True, collect_kv=False, ssm_impl="kernel"):
     """Embedding, every decoder layer and the final norm.
 
-    Returns ``(hidden (B, S, D), aux_loss, kv_tree or None)``; with
-    ``collect_kv`` the tree is, for ``dense``/``moe``, ``{"k", "v"}`` each
-    ``(L, B, S, KH, hd)``; for ``ssm`` the mamba layers' final state
-    ``{"conv", "ssm"}`` stacked on L; for ``hybrid`` ``{"mamba": ...,
-    "attn": {"k", "v"}}`` with one KV per shared-block application.
+    Returns ``(hidden (B, S, D), aux_loss, kv_tree or None)``, S counting
+    the vision frontend's rows; with ``collect_kv`` the tree is, for
+    ``dense``/``moe``/``vlm``, ``{"k", "v"}`` each ``(L, B, S, KH, hd)``;
+    for ``audio`` also the cross K/V ``{"ck", "cv"}`` each ``(L, B, T_enc,
+    KH, hd)``; for ``ssm`` the mamba layers' final state ``{"conv",
+    "ssm"}`` stacked on L; for ``hybrid`` ``{"mamba": ..., "attn": {"k",
+    "v"}}`` with one KV per shared-block application.
     ``attn_impl``: ``layers.attention``'s (``"kernel"``/``"pallas"`` for
     the flash-attention kernel); ``ssm_impl``: the scans' (``models.ssm``,
     the kernels by default).  ``remat`` changes nothing (module
@@ -259,6 +340,8 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     L = cfg.num_layers
     kv_tree = None
+    if cfg.family == "audio":
+        x = x + text_positions(cfg, S, x.device).to(x.dtype)
 
     def attn(p, x, kvs):
         x, kv, a = attn_block_full(cfg, p, x, rope_cs, impl=attn_impl,
@@ -278,6 +361,22 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
             aux = aux + a
         if collect_kv:
             kv_tree = stacked(kvs)
+    elif cfg.family == "audio":
+        enc_out = encode_audio(cfg, params, inputs["frames"],
+                               attn_impl=attn_impl, remat=remat)
+        ckvs = []
+        for li in range(L):
+            lp = layer_params(params, li)
+            x, a = attn(lp, x, kvs)
+            aux = aux + a
+            ckv = _enc_cross_kv(cfg, lp, enc_out)
+            x = cross_block_full(cfg, lp, x, ckv, impl=attn_impl)
+            if collect_kv:
+                ckvs.append(ckv)
+        if collect_kv:
+            kv_tree = dict(stacked(kvs),
+                           ck=torch.stack([k for k, _ in ckvs]),
+                           cv=torch.stack([v for _, v in ckvs]))
     else:
         period = cfg.hybrid_period if cfg.family == "hybrid" else 0
         for li in range(L):
@@ -303,7 +402,8 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
 def prefill(cfg, params, inputs, *, max_seq, attn_impl="chunked", window=None,
             remat=True, ssm_impl="kernel"):
     """Full-prompt forward.  Returns ``(last_logits (B, V) f32, cache)``,
-    the cache as ``init_cache`` shapes it, ``pos`` the prompt length.
+    the cache as ``init_cache`` shapes it, ``pos`` the prompt length (the
+    vision frontend's rows included).
     ``window`` defaults to the config's native sliding window."""
     window = window if window is not None else cfg.sliding_window
     hidden, _, kv = forward_hidden(cfg, params, inputs, attn_impl=attn_impl,
@@ -333,6 +433,11 @@ def _cache_from_prefill(cfg, kv, S, max_seq, window):
     if cfg.family in _ATTN_FAMILIES:
         return {"k": ring_rows(kv["k"], cl), "v": ring_rows(kv["v"], cl),
                 "pos": pos}
+    if cfg.family == "audio":
+        # the cross K/V heads-major, every encoder row (no ring)
+        return {"k": ring_rows(kv["k"], cl), "v": ring_rows(kv["v"], cl),
+                "ck": kv["ck"].transpose(2, 3).contiguous(),
+                "cv": kv["cv"].transpose(2, 3).contiguous(), "pos": pos}
     if cfg.family == "ssm":
         return {"mamba": kv, "pos": pos}
     return {"mamba": kv["mamba"],
@@ -364,9 +469,10 @@ def init_cache(cfg, batch, max_seq, dtype=torch.float32, window=None,
                device="cuda"):
     """Zero decode cache (shapes mirror ``_cache_from_prefill``): K/V
     heads-major ``(L, B, KH, CL, hd)`` with ``CL = min(max_seq, window)``,
-    mamba conv state in ``dtype`` and SSM state in f32; ``pos`` an int32
-    0-d tensor.  Every state tensor is its own (decode writes in place).
-    ``device`` defaults to the card."""
+    mamba conv state in ``dtype`` and SSM state in f32, whisper's cross
+    K/V ``(L, B, KH, T_enc, hd)``; ``pos`` an int32 0-d tensor.  Every
+    state tensor is its own (decode writes in place).  ``device``
+    defaults to the card."""
     _check_family(cfg)
     dev = resolve_device(device)
     L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -378,6 +484,12 @@ def init_cache(cfg, batch, max_seq, dtype=torch.float32, window=None,
     if cfg.family in _ATTN_FAMILIES:
         return {"k": zeros(L, batch, KH, cl, hd),
                 "v": zeros(L, batch, KH, cl, hd), "pos": pos}
+    if cfg.family == "audio":
+        enc = cfg.encoder.context_len
+        return {"k": zeros(L, batch, KH, cl, hd),
+                "v": zeros(L, batch, KH, cl, hd),
+                "ck": zeros(L, batch, KH, enc, hd),
+                "cv": zeros(L, batch, KH, enc, hd), "pos": pos}
     s = cfg.ssm
     if cfg.family == "ssm":
         return {"mamba": {"conv": zeros(L, batch, s.d_conv - 1, cfg.d_inner),
@@ -407,13 +519,16 @@ def _attn_decode_sublayer(cfg, p, x, k_all, v_all, li, pos, *, window,
     already bounds the window (``window`` is the reference's argument and
     unused), so only unwritten rows are masked: ``min(pos + 1, CL)`` rows
     are live.  ``impl`` ``"kernel"``/``"pallas"`` runs the flash-decode
-    kernel; any other the plain ``layers.decode_attention``."""
+    kernel; any other the plain ``layers.decode_attention``.  Whisper's
+    positions are in its embedding: no RoPE."""
     B = x.shape[0]
     h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p["attn"], h)
-    cos, sin = Lyr.rope_cos_sin(pos.reshape(1), cfg.head_dim, cfg.rope_theta)
-    q = Lyr.apply_rope(q, cos[None], sin[None])
-    k = Lyr.apply_rope(k, cos[None], sin[None])
+    if cfg.family != "audio":
+        cos, sin = Lyr.rope_cos_sin(pos.reshape(1), cfg.head_dim,
+                                    cfg.rope_theta)
+        q = Lyr.apply_rope(q, cos[None], sin[None])
+        k = Lyr.apply_rope(k, cos[None], sin[None])
     CL = k_all.shape[3]
     widx = torch.remainder(pos, CL).reshape(1).long()       # ring row
     k_layer, v_layer = k_all[li], v_all[li]
@@ -433,7 +548,11 @@ def decode_step(cfg, params, token, cache, *, window=None, attn_impl="chunked",
                 ssm_impl="kernel"):
     """token: (B, 1) int.  Returns ``(logits (B, V) f32, new_cache)``.
     K/V rows are written into ``cache``'s tensors in place (module
-    docstring); the mamba layers' state comes back as new tensors."""
+    docstring); the mamba layers' state comes back as new tensors.
+    Whisper adds ``sinusoidal_at(pos)`` to the token's embedding, and its
+    cross attention reads every encoder row of ``ck``/``cv`` through the
+    plain ``layers.decode_attention``, whatever ``attn_impl``, as the
+    reference's does."""
     _check_family(cfg)
     x = params["embed"][token]
     pos = cache["pos"]
@@ -443,6 +562,21 @@ def decode_step(cfg, params, token, cache, *, window=None, attn_impl="chunked",
                                       cache["k"], cache["v"], li, pos,
                                       window=window, impl=attn_impl)
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    elif cfg.family == "audio":
+        x = x + Lyr.sinusoidal_at(pos.reshape(1), cfg.d_model).to(
+            x.dtype)[None]
+        B = x.shape[0]
+        ck, cv = cache["ck"], cache["cv"]
+        for li in range(cfg.num_layers):
+            lp = layer_params(params, li)
+            x = _attn_decode_sublayer(cfg, lp, x, cache["k"], cache["v"],
+                                      li, pos, window=window, impl=attn_impl)
+            xq = (_apply_norm(cfg, lp["ln_x"], x) @ lp["xattn"]["wq"]
+                  ).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+            att = Lyr.decode_attention(xq, ck[li], cv[li], pos=ck.shape[3])
+            x = x + att.reshape(B, 1, -1) @ lp["xattn"]["wo"]
+        new_cache = {"k": cache["k"], "v": cache["v"], "ck": ck, "cv": cv,
+                     "pos": pos + 1}
     else:
         period = cfg.hybrid_period if cfg.family == "hybrid" else 0
         convs, hs = [], []

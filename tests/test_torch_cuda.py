@@ -1,8 +1,10 @@
 """The port on a CUDA device: the flash-decode, flash-attention,
 mamba1_scan and ssd_scan kernels against their plain versions (the
-attention kernels at zamba2-7b's head_dim 112 too), short kernel-routed
-decodes against the reference route for the dense, moe, ssm and hybrid
-families and for the standalone ``decode_step`` on a windowed ring, the
+attention kernels at zamba2-7b's head_dim 112, and at whisper-medium's
+and internvl2-76b's full-width shapes, too), short kernel-routed
+decodes against the reference route for the dense, moe, ssm, hybrid,
+vlm and audio families and for the standalone ``decode_step`` on a
+windowed ring, the
 stateless pipeline on the prefill kernel, and transfer hand-offs that
 take no page-locked block from the host allocator.
 Imports only torch and the port, so it also runs where JAX is absent.
@@ -708,3 +710,83 @@ def test_standalone_decode_step_kernel_route_on_ring(cuda, S):
         assert FD.flash_decode_attention.launches == before + cfg.num_layers
         pl, pc = T.decode_step(cfg, params, seq[:, n:n + 1], pc)
         assert (kl - pl).abs().max().item() <= 5e-4
+
+
+# whisper-medium (16 / 16 heads of 64) and internvl2-76b (64 / 8 of 128) at
+# full width: whisper's encoder over its 1500 frames (the last key tile 28
+# of 64 keys), its cross attention (448 queries against them) and its
+# decoder, internvl2's 1024-row prefill
+FRONTEND_FA = [(1500, 1500, 16, 16, 64, False), (448, 1500, 16, 16, 64, False),
+               (448, 448, 16, 16, 64, True), (1024, 1024, 64, 8, 128, True)]
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KH,D,causal", FRONTEND_FA)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_frontend_shapes(cuda, Sq, Sk, H, KH, D, causal,
+                                        dtype):
+    _fa_compare(cuda, 1, Sq, Sk, H, KH, D, dtype, causal=causal)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(20, 44), (70, 44), (64, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_ragged_keys_non_causal(cuda, Sq, Sk, dtype):
+    """Non-causal, Sq != Sk, a key tail short of a tile at D 64: the zero
+    rows a TMA box reads past Sk must take no weight."""
+    _fa_compare(cuda, 2, Sq, Sk, 4, 4, 64, dtype, causal=False)
+
+
+@pytest.mark.parametrize("H,KH,D,S,sweep", [
+    (16, 16, 64, 448, (1, 15, 16, 17, 200, 447, 448)),
+    (64, 8, 128, 2048, (1, 17, 1024, 2048))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_frontend_shapes(cuda, H, KH, D, S, sweep, dtype):
+    """whisper-medium's decoder cache (no GQA, D 64, 448 rows) and
+    internvl2-76b's (GQA 8), every pos of the sweep."""
+    q, k, v = _fd_inputs(cuda, 1, H, KH, D, dtype, seed=9, S=S)
+    for pos in sweep:
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"])
+def test_frontend_kernel_route_matches_plain_route(cuda, arch):
+    """Reduced whisper-medium and internvl2-76b in f32: ``prefill`` (with
+    the frames or patch embeddings) on the flash-attention kernel and four
+    ``decode_step``s on the flash-decode kernel against the plain route to
+    5e-4; the launches a prefill (whisper: encoder, self and cross
+    attention each a layer) and a step; every ``StageRunner`` split on the
+    kernel route bit-equal to its monolithic forward."""
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    params = init_model(cfg, device=cuda, seed=6)
+    gen = torch.Generator().manual_seed(7)
+    seq = torch.randint(0, cfg.vocab_size, (2, 14), generator=gen).to(cuda)
+    inputs = {"tokens": seq[:, :10]}
+    if cfg.frontend == "audio":
+        inputs["frames"] = torch.randn(2, cfg.encoder.context_len,
+                                       cfg.d_model, generator=gen).to(cuda)
+        per_prefill = cfg.encoder.num_layers + 2 * cfg.num_layers
+    else:
+        inputs["vision_embeds"] = torch.randn(2, cfg.frontend_tokens,
+                                              cfg.d_model,
+                                              generator=gen).to(cuda)
+        per_prefill = cfg.num_layers
+    before = FA.flash_attention.launches
+    kl, kc = T.prefill(cfg, params, inputs, max_seq=32, attn_impl="kernel")
+    assert FA.flash_attention.launches == before + per_prefill
+    pl, pc = T.prefill(cfg, params, inputs, max_seq=32)
+    assert (kl - pl).abs().max().item() <= 5e-4
+    for n in range(10, 14):
+        before = FD.flash_decode_attention.launches
+        kl, kc = T.decode_step(cfg, params, seq[:, n:n + 1], kc,
+                               attn_impl="kernel")
+        assert FD.flash_decode_attention.launches == before + cfg.num_layers
+        pl, pc = T.decode_step(cfg, params, seq[:, n:n + 1], pc)
+        assert (kl - pl).abs().max().item() <= 5e-4
+    runner = StageRunner(cfg, params, attn_impl="kernel", device=cuda)
+    mono = runner.run_units(inputs, 0, runner.num_units)["logits"]
+    for split in range(runner.num_units - 1):
+        mid = runner.run_units(inputs, 0, split + 1)
+        out = runner.run_units(mid, split + 1, runner.num_units)["logits"]
+        assert torch.equal(out, mono), split

@@ -1,9 +1,9 @@
 """Port of flash_attention: the plain PyTorch version and
 ``attention(impl="kernel")`` against the JAX package's Pallas kernel
-(interpret mode on the CPU) over the reference's shape grid and mask cases,
-the wrapper's refusals, and its tile and grid plan.  The CUDA kernel itself
-is held against the plain version in tests/test_torch_cuda.py and
-chip_smoke.py."""
+(interpret mode on the CPU) over the reference's shape grid and mask cases
+and whisper's non-causal Sq != Sk shapes at D 64, the wrapper's refusals,
+and its tile and grid plan.  The CUDA kernel itself is held against the
+plain version in tests/test_torch_cuda.py and chip_smoke.py."""
 import collections
 
 import numpy as np
@@ -83,6 +83,47 @@ def test_plain_matches_jax_kernel_masks(causal, window, q_offset, dtype):
     _close(got, want, _tol(dtype))
     for impl in ("kernel", "pallas"):
         assert torch.equal(Lyr.attention(tq, tk, tv, impl=impl, **kw), got)
+
+
+# whisper's cross attention and encoder: non-causal at D 64, Sq != Sk,
+# a ragged key tail (44 = 2 * 16 + 12), Sq below, equal to and above Sk
+CROSS_SHAPES = [(1, 20, 44, 4, 4, 64), (2, 12, 44, 2, 2, 64),
+                (1, 70, 44, 4, 4, 64), (1, 44, 44, 4, 4, 64)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_cross(B, Sq, Sk, H, KH, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, Sq, Sk, H, KH, D, seed=3),
+                                       dtype)
+    want = jax_flash_attention(jq, jk, jv, causal=False, block_q=16,
+                               block_k=16)
+    got = FA.flash_attention_plain(tq, tk, tv, causal=False)
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, H, D)
+    _close(got, want, _tol(dtype))
+    assert torch.equal(Lyr.attention(tq, tk, tv, causal=False,
+                                     impl="kernel"), got)
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            Lyr.chunked_attention(tq, tk, tv, causal=False, q_chunk=16,
+                                  kv_chunk=16).numpy(), got.numpy(),
+            atol=1e-5)
+
+
+def test_non_causal_items_walk_every_key_tile():
+    """Non-causal, every q tile walks all ``ceil(Sk / 64)`` key tiles,
+    whatever Sq: whisper's encoder (1500 x 1500: 24 tiles, the last of 28
+    keys) and cross attention (448 x 1500)."""
+    for Sq, Sk in ((1500, 1500), (448, 1500), (20, 44)):
+        for qt in range(FA.n_q_tiles(Sq)):
+            assert FA.key_tiles(qt, Sq, Sk, causal=False, window=None,
+                                q_offset=0) == (0, -(-Sk // FA.BLOCK_K))
+    assert -(-1500 // FA.BLOCK_K) == 24 and 1500 - 23 * FA.BLOCK_K == 28
+    q = torch.empty(1, 448, 16, 64)
+    k = torch.empty(1, 1500, 16, 64)
+    assert FA.live_pairs(448, 1500, causal=False, window=None,
+                         q_offset=0) == 448 * 1500
+    assert FA.bound_flops(q, k, causal=False) == 4 * 64 * 16 * 448 * 1500
 
 
 @pytest.mark.parametrize("causal,window,q_offset", MASKS)
@@ -198,7 +239,13 @@ def test_walked_tiles_cover_every_live_key():
 SCHEDULE_CASES = [(1, 1024, 1024, 16, True, None, 0),
                   (1, 2048, 2048, 16, True, None, 0),
                   (1, 2048, 2048, 32, True, None, 0),
-                  (1, 1024, 2048, 16, True, None, 1024)] + [
+                  (1, 1024, 2048, 16, True, None, 1024),
+                  # whisper-medium's encoder, cross attention and decoder,
+                  # internvl2-76b's prefill (256 patches + 768 tokens)
+                  (1, 1500, 1500, 16, False, None, 0),
+                  (1, 448, 1500, 16, False, None, 0),
+                  (1, 448, 448, 16, True, None, 0),
+                  (1, 1024, 1024, 64, True, None, 0)] + [
     (B, Sq, Sk, H, False, None, 0) for B, Sq, Sk, H, _, _ in SHAPES] + [
     (2, 64, 64 + q_offset, 4, causal, window, q_offset)
     for causal, window, q_offset in MASKS]

@@ -155,13 +155,29 @@ def test_effective_window_matches_jax(arch, seq):
 
 
 def test_unported_families_raise():
-    cfg = get_config("qwen2.5-3b").reduced()
-    for family in ("vlm", "audio"):
-        bad = dataclasses.replace(cfg, family=family)
-        with pytest.raises(NotImplementedError, match="remaining-families"):
-            TT.init_cache(bad, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError):
-            TT.forward_hidden(bad, {}, {"tokens": torch.zeros(1, 2).long()})
+    """Every family of the reference builds and runs (the frontends'
+    parity is tests/test_torch_frontends.py); a family the reference does
+    not know raises its ``ValueError``."""
+    for arch in ("whisper-medium", "internvl2-76b"):
+        cfg = get_config(arch).reduced()
+        jc = JT.init_cache(cfg, 1, 8)
+        _tree_close(TT.init_cache(cfg, 1, 8, device="cpu"), jc, 0.0)
+        tp = TT.init_model(cfg, device="cpu")
+        inputs = {"tokens": torch.zeros(1, 2).long()}
+        if cfg.frontend == "audio":
+            inputs["frames"] = torch.zeros(1, cfg.encoder.context_len,
+                                           cfg.d_model)
+        else:
+            inputs["vision_embeds"] = torch.zeros(1, cfg.frontend_tokens,
+                                                  cfg.d_model)
+        h, _, _ = TT.forward_hidden(cfg, tp, inputs)
+        assert h.shape == (1, 2 + cfg.frontend_tokens, cfg.d_model)
+    bad = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              family="rnn")
+    with pytest.raises(ValueError):
+        JT.init_cache(bad, 1, 8)
+    with pytest.raises(ValueError):
+        TT.init_cache(bad, 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from repro_torch.core.pipeline import EdgeCloudPipeline  # noqa: E402
 from repro_torch.core.stages import StageRunner  # noqa: E402
 from repro_torch.core.stateful import make_stateful_manager  # noqa: E402
 from repro_torch.core.switching import PipelineManager  # noqa: E402
+from repro_torch.models.transformer import init_model  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -239,10 +240,15 @@ def test_entry_points_need_cuda_unless_cpu(pair):
     _, tr, _ = pair
     with pytest.raises(RuntimeError, match="CUDA"):
         StageRunner(tr.cfg, tr.params)
-    # a family still to port (ssm and hybrid are: test_torch_ssm_serving;
-    # moe is: the MoE tests below)
-    cfg = dataclasses.replace(tr.cfg, family="vlm")
-    with pytest.raises(NotImplementedError):
+    # every family is ported (ssm and hybrid: test_torch_ssm_serving; moe:
+    # the MoE tests below; vlm and audio: test_torch_frontends): the
+    # frontends build on the CPU, a family the reference lacks raises
+    for arch in ("whisper-medium", "internvl2-76b"):
+        cfg = tget(arch).reduced()
+        assert StageRunner(cfg, init_model(cfg, device="cpu"),
+                           device="cpu").num_units == cfg.num_layers + 2
+    cfg = dataclasses.replace(tr.cfg, family="rnn")
+    with pytest.raises(ValueError):
         StageRunner(cfg, tr.params, device="cpu")
 
 

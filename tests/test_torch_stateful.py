@@ -310,12 +310,18 @@ def test_decode_impl_validation_and_auto_resolution():
 
 def test_unported_parts_raise():
     _, tcfg = _cfgs("dense")
-    with pytest.raises(NotImplementedError):
-        unit_list(dataclasses.replace(tcfg, family="vlm"))
+    # vlm serves as a dense model (tests/test_torch_frontends.py); audio is
+    # refused with the reference's ValueError
+    vlm = dataclasses.replace(tcfg, family="vlm")
+    assert unit_list(vlm) == unit_list(tcfg)
+    with pytest.raises(ValueError, match="unsupported"):
+        unit_list(dataclasses.replace(tcfg, family="audio"))
+    with pytest.raises(ValueError, match="unsupported"):
+        unit_list(tget("whisper-medium"))
     # the ssm and hybrid families are ported (tests/test_torch_ssm_serving.py),
     # and so is moe (the MoE cases above)
     for arch in ("falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b",
-                 "mixtral-8x22b"):
+                 "mixtral-8x22b", "internvl2-76b"):
         assert unit_list(tget(arch))[0] == ("layer", 0)
     with pytest.raises(NotImplementedError):
         PipelineKey(split=1, mesh_shape=(1, 2))

@@ -4,7 +4,8 @@ runs long, and what the host and the device read when it did.
 
     python3 tools/probe_switches.py [--arch falcon-mamba-7b] [--rounds 40]
 
-The model is built as chip_smoke.py's phase 4 builds it (full width,
+The model is built as chip_smoke.py's phase 4 builds it (full width, at
+its ``DEPTH`` where that cuts it,
 bf16, random weights from ``--seed``, prompt 1024, ``max_seq`` 2048, the
 kernels, 16 decode steps, then a 5 Mbps link). Each round is phase 4's
 first two switches: switch_b2 from half to a quarter of the depth, 8
@@ -19,6 +20,7 @@ median. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -51,6 +53,8 @@ def main() -> None:
     gclog = CS.GcLog()
     gclog.label = f"{args.arch} switches"
     cfg = get_config(args.arch)
+    if args.arch in CS.DEPTH:              # cut for memory as chip_smoke's
+        cfg = dataclasses.replace(cfg, num_layers=CS.DEPTH[args.arch])
     L = cfg.num_layers
     half, quarter = L // 2, L // 4
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
