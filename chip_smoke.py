@@ -71,6 +71,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and device span, allocator counters, garbage collections,
                threads, pending builds, SM clock and throttle reasons);
                every full garbage collection of the run is logged.
+               switch_a runs with the build worker held and must make no
+               fresh ``cudaMalloc`` (its hand-off draws the blocks the
+               standby's warm-up left in the session's arena; the
+               worker's re-armed standby build, which allocates its
+               weights, starts after the block).
 5. handoff   — both hand-off arms on the card: a switch pinned to the
                transfer arm must leave the logits bit-equal to the
                unswitched session's; after a switch pinned to the recompute
@@ -109,7 +114,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                4's checkpoint), handing off on the plan's arm, and once
                more under switch_b2 and switch_a pinned to the transfer
                arm (switch_b2 over switch_a by at least twice the spread of
-               the export walls); checks the measured stream downtime
+               the export walls; each export's wall split into its copies
+               into page-locked memory and its CRC32 pass, beside the
+               import's CRC32 pass); checks the measured stream downtime
                order, switch drops,
                each step's and admission's launches, and every live
                slot's logits
@@ -168,7 +175,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                within 5% of the largest logit; prints the request's and
                the step's wall and busy time, the device time of the
                step's plain cross attention, and the peak memory.
-11. report   — prints the script's wall, the ``kernels`` JSON line, the
+11. training — (a) the chunked flash attention's backward
+               (``attention(impl="chunked")``) against autograd through
+               ``naive_attention`` at qwen2.5-3b's training shape (B 1, S
+               2048, 16/2 heads of 128) and mixtral-8x22b's window (S
+               6144, window 4096, 48/8 heads of 128), f32, causal; (b)
+               ``chunked_cross_entropy``'s gradients against autograd
+               through the whole (1, 2048, 151936) f32 logits; each to
+               1e-4 of its largest value; (c) ``training.train`` on
+               qwen2.5-3b at full width and depth (36 layers), f32 weights
+               and AdamW state, 20 steps of 1 x 2048 tokens at lr 3e-4,
+               ``remat``, the last step under torch.profiler; (d) the
+               same initialisation and optimizer on the stream's first
+               batch repeated 5 times (``make_train_step``).  Checks
+               finite losses, the first within 1.5 nats above ln V, the
+               repeated batch's loss reaching 0.5 nats below its first
+               (the stream's
+               own cannot fall in 20 steps at this vocabulary, in either
+               package: each batch is a fresh range of tokens) and no
+               launch of the four kernels (none has a backward); prints
+               the first loss against ln V, the median
+               step wall, tokens/s, model FLOP/s (6 N T) as a share of
+               the FP32 peak, the peak memory and the profiled step's
+               busy time, idle share and top device operations.
+12. report   — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -1318,6 +1348,21 @@ def switch_probe(mgr, session, gclog: GcLog):
             "gc": gclog.between(t0, t1), "clocks_after": smi_clocks()})
 
 
+@contextlib.contextmanager
+def builds_held(mgr):
+    """Hold the pool's build worker for the span of the block: a build a
+    switch submits (switch_a's re-armed successor and its hand-off
+    warm-up) waits until the block ends, so the allocator counters read
+    across the block are the switch's own thread's."""
+    gate = threading.Event()
+    held = mgr.pool.executor.submit(gate.wait)
+    try:
+        yield
+    finally:
+        gate.set()
+        held.wait()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the stateful decode path
 # ---------------------------------------------------------------------------
@@ -1400,7 +1445,8 @@ def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
     rep_b2 = repartition("switch_b2", splits[1])
     serve(8, per_step_check=True)
     mgr.build_standby(splits[2])
-    rep_a = repartition("switch_a", splits[2])
+    with builds_held(mgr):
+        rep_a = repartition("switch_a", splits[2])
     serve(8, per_step_check=False)       # the old split's standby rebuilds
     rep_pr = repartition("pause_resume", splits[3])
     serve(8, per_step_check=True)
@@ -1420,6 +1466,11 @@ def phase_slice(K, cfg, params, kw, splits, gclog: GcLog) -> tuple:
           f"{per_step}; hand-offs' recomputes {recomputes}")
     check(rep_pr.downtime > rep_b2.downtime > rep_a.downtime,
           "downtime ordering pause_resume > switch_b2 > switch_a violated")
+    # the standby's warm-up left the hand-off's blocks in the session's
+    # arena and the re-armed build waited: no new device memory
+    fresh = probes["switch_a"]["alloc"]["num_device_alloc"]
+    check(fresh == 0, f"switch_a's repartition made {fresh} fresh "
+                      f"cudaMalloc(s), want 0")
     check(all(bool(torch.isfinite(x).all()) for x in logits_seen),
           "non-finite logits")
     ckpt = mgr.pool.checkpoint_path       # phase 6 reloads it too
@@ -2095,20 +2146,41 @@ def record_pool(K, sm, log: list, admits: list):
 def serving_switch_probe(mgr, sm, gclog: GcLog, probes: list):
     """``switch_probe`` around one of the engine's switches, plus the
     transfer arm's two halves (``export_layers`` and ``import_layers``
-    walls, ``host_counters`` across each), appended to ``probes``."""
-    parts = {}
+    walls, ``host_counters`` across each) and, inside each half, its
+    CRC32 pass (``payload_checksum``: the export's envelope, the import's
+    validation) and the export's copies from the card into its
+    page-locked ``HostBuffer``s (``_payload_entry``), appended to
+    ``probes``."""
+    from repro_torch.serving import sessions as SM
+    parts, inside = {}, []
 
     def timed(name, fn):
         def run(*args, **kwargs):
+            inside.append(name)
+            part = parts[name] = {"copy_s": 0.0, "crc_s": 0.0}
             c0, t0 = host_counters(), time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                parts[name] = {"wall_s": time.perf_counter() - t0,
-                               "host": host_delta(c0, host_counters())}
+                inside.pop()
+                part.update(wall_s=time.perf_counter() - t0,
+                            host=host_delta(c0, host_counters()))
         return run
+
+    def tally(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if inside:
+                    parts[inside[-1]][key] += time.perf_counter() - t0
+        return run
+    real = SM.payload_checksum, SM._payload_entry
     sm.export_layers = timed("export", sm.export_layers)
     sm.import_layers = timed("import", sm.import_layers)
+    SM.payload_checksum = tally("crc_s", SM.payload_checksum)
+    SM._payload_entry = tally("copy_s", SM._payload_entry)
     try:
         with switch_probe(mgr, sm, gclog) as rec:
             yield rec
@@ -2116,6 +2188,7 @@ def serving_switch_probe(mgr, sm, gclog: GcLog, probes: list):
         probes.append(rec)
     finally:
         del sm.export_layers, sm.import_layers
+        SM.payload_checksum, SM._payload_entry = real
 
 
 def log_switches(eng, mgr, sm, gclog: GcLog, log: list, probes: list):
@@ -2379,8 +2452,18 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
     exports = [x for _, ex in walls.values() for x in ex if x is not None]
     margin = tr["switch_b2"]["downtime_s"] - tr["switch_a"]["downtime_s"]
     spread = max(exports) - min(exports) if exports else None
+    # each export's wall split: the copies into page-locked memory, its
+    # CRC32 pass; and the import's CRC32 pass over the same bytes
+    split = {k: [{key: {f: p["handoff_parts"][key][f]
+                        for f in ("wall_s", "copy_s", "crc_s")}
+                   for key in ("export", "import")
+                   if key in p["handoff_parts"]}
+                  for p in r["switch_probes"]] for k, r in tr.items()}
     out.update({"transfer_order_held": held, "transfer_margin_s": margin,
-                "transfer_export_spread_s": spread})
+                "transfer_export_spread_s": spread,
+                "transfer_handoff_parts": split})
+    print(f"[serving] 7a transfer hand-offs, each half's wall, copies into "
+          f"page-locked memory and CRC32 pass (s): {split}")
     print(f"[serving] 7a on the transfer arm: measured downtime switch_b2 "
           f"{tr['switch_b2']['downtime_s']:.6f} s beside switch_a "
           f"{tr['switch_a']['downtime_s']:.6f} s; switch_b2 > switch_a "
@@ -3115,6 +3198,252 @@ def phase_window(K, seed, gclog: GcLog) -> dict:
             "logit_limit": limit, "peak_device_bytes": peak, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (qwen2.5-3b at full width and depth, f32)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 1, 2048, 3e-4
+# the attention backward at qwen2.5-3b's training shape and at mixtral's
+# window (phase 9's prompt): (B, S, H, KH, D, window), f32, causal
+TRAIN_ATTN = {"qwen2.5-3b": (1, 2048, 16, 2, 128, None),
+              "mixtral-8x22b window": (1, 6144, 48, 8, 128, 4096)}
+# f32 gradients: 1e-4 of each one's largest |value|, the reference's f32
+# attention tolerance
+GRAD_RTOL = 1e-4
+# the H100 SXM's FP32 rate outside the tensor cores (NVIDIA's data sheet):
+# TF32 stays off, as phase 1 sets it
+FP32_PEAK = 67e12
+# the synthetic stream draws each batch's tokens from a fresh range of the
+# 151936-token vocabulary, so 20 steps cannot lower its loss measurably:
+# both packages stay within noise of their first loss there
+# (tools/probe_stream_loss.py on the CPU; PERF.md).  So a correct step is
+# shown on one batch repeated: over REPEAT_STEPS steps its loss must reach
+# REPEAT_DROP nats below the first (at lr 3e-4 without a warm-up it falls
+# unevenly: 12.35, 11.78, 11.00, 12.51, 10.01 on the card)
+REPEAT_STEPS, REPEAT_DROP = 5, 0.5
+
+
+def rel_err(got, want) -> float:
+    return max_diff(got, want) / max(want.abs().max().item(), 1e-30)
+
+
+def attention_grad_check(gen, B, S, H, KH, D, window) -> dict:
+    """``attention(impl="chunked")``'s gradients (the blockwise backward,
+    ``layers._ChunkedAttention``) against autograd through
+    ``naive_attention``, one KV head's group of query heads at a time (the
+    heads are independent; the full score tensor at mixtral's window would
+    be 7.2 GB a copy).  Returns each one's error over its largest |value|
+    and the device milliseconds of a forward and backward of each."""
+    from repro_torch.models import layers as Lyr
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    q, k, v = rand(B, S, H, D), rand(B, S, KH, D), rand(B, S, KH, D)
+    dout = rand(B, S, H, D)
+    G = H // KH
+
+    def function():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = Lyr.attention(*leaves, causal=True, window=window,
+                            impl="chunked")
+        return [out.detach()] + list(torch.autograd.grad(out, leaves,
+                                                         dout))
+
+    def naive():
+        parts = []
+        for h in range(KH):
+            hs = slice(h * G, (h + 1) * G)
+            leaves = [t.detach().requires_grad_() for t in
+                      (q[:, :, hs], k[:, :, h:h + 1], v[:, :, h:h + 1])]
+            out = Lyr.naive_attention(*leaves, causal=True, window=window)
+            parts.append([out.detach()] + list(torch.autograd.grad(
+                out, leaves, dout[:, :, hs])))
+        return [torch.cat([p[i] for p in parts], 2) for i in range(4)]
+    got, want = function(), naive()
+    errs = {name: rel_err(g, w) for name, g, w in
+            zip(("out", "dq", "dk", "dv"), got, want)}
+    del got, want
+    return {"rel_err": errs,
+            "ms": cuda_ms(lambda i: function(), 3),
+            "naive_ms": cuda_ms(lambda i: naive(), 3)}
+
+
+def ce_grad_check(cfg, gen) -> dict:
+    """``chunked_cross_entropy``'s value and gradients (hidden and the
+    tied head) at qwen2.5-3b's training shape against autograd through the
+    whole ``(1, 2048, V)`` f32 logits (every 7th label ignored)."""
+    from repro_torch.models import transformer as T
+    S, V, D = TRAIN_SEQ, cfg.vocab_size, cfg.d_model
+    hidden = torch.randn(1, S, D, generator=gen, device="cuda")
+    embed = torch.randn(V, D, generator=gen, device="cuda") * 0.02
+    labels = torch.randint(0, V, (1, S), generator=gen, device="cuda")
+    labels[:, ::7] = -1
+
+    def grads(loss_fn):
+        h, e = (t.detach().requires_grad_() for t in (hidden, embed))
+        loss = loss_fn(h, e)
+        return [loss.detach()] + list(torch.autograd.grad(loss, (h, e)))
+
+    def plain(h, e):
+        logits = (h @ e.T).float()
+        valid = labels >= 0
+        nll = logits.logsumexp(-1) - logits.gather(
+            -1, labels.clamp_min(0)[..., None])[..., 0]
+        return (nll * valid).sum() / valid.sum()
+    got = grads(lambda h, e: T.chunked_cross_entropy(cfg, {"embed": e}, h,
+                                                     labels))
+    want = grads(plain)
+    return {"rel_err": {name: rel_err(g, w) for name, g, w in
+                        zip(("loss", "d_hidden", "d_embed"), got, want)},
+            "loss": got[0].item()}
+
+
+def phase_training(K, seed, gclog: GcLog) -> dict:
+    """(a) The attention backward at ``TRAIN_ATTN``'s shapes and (b) the
+    loss's gradient, each against plain autograd; (c) ``train``, the
+    port's loop, for qwen2.5-3b at full width and depth: f32 weights and
+    AdamW state, ``TRAIN_STEPS`` steps of batch ``TRAIN_BATCH`` and
+    ``TRAIN_SEQ`` tokens, ``remat``; the last step under torch.profiler;
+    (d) ``make_train_step`` with ``train``'s initialisation and optimizer
+    on the stream's first batch, repeated ``REPEAT_STEPS`` times.  Checks
+    finite losses, the first within 1.5 nats above ln V, the repeated
+    batch's loss reaching ``REPEAT_DROP`` nats below its first, and that
+    none of the four kernels launched (they have no backward: the
+    training route is plain)."""
+    import statistics
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.training import make_train_step, train
+
+    t0 = time.perf_counter()
+    gclog.label = "phase 11"
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    K.reset()
+    checks = {name: attention_grad_check(gen, *shape)
+              for name, shape in TRAIN_ATTN.items()}
+    free_memory()
+    checks["cross_entropy"] = ce_grad_check(cfg, gen)
+    free_memory()
+    for name, c in checks.items():
+        print(f"[train] {name}: gradients over plain autograd, error / "
+              f"largest |value|: {c['rel_err']}"
+              + (f"; forward + backward {c['ms']:.3f} ms, plain "
+                 f"{c['naive_ms']:.3f} ms" if "ms" in c else ""))
+        for part, err in c["rel_err"].items():
+            check(err <= GRAD_RTOL, f"phase 11 {name}: {part} off by {err} "
+                                    f"of its largest value (> {GRAD_RTOL})")
+    check(K.read() == dict.fromkeys(K.wrappers, 0),
+          f"phase 11's gradient checks launched {K.read()}")
+
+    # --- (c) the training run, with the launch counts read around it ---
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=TRAIN_STEPS - 2, warmup=1,
+                                     active=1))
+    lines = []
+
+    def log(line):
+        lines.append(line)
+        prof.step()
+    K.reset()
+    sw = time.perf_counter()
+    with prof:
+        hist = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, lr=TRAIN_LR, seed=seed, log_every=1,
+                     remat=True, log_fn=log)
+    run_s = time.perf_counter() - sw
+    peak = torch.cuda.max_memory_allocated()
+    free_memory()
+
+    # --- (d) the stream's first batch, repeated ---------------------------
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    step, init_opt = make_train_step(cfg, optimizer=adamw(
+        schedule=cosine_schedule(TRAIN_LR, warmup=max(TRAIN_STEPS // 20, 1),
+                                 total=TRAIN_STEPS)), remat=True)
+    opt = init_opt(params)
+    first = next(iter(SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=seed)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    repeat = []
+    for _ in range(REPEAT_STEPS):
+        params, opt, metrics = step(params, opt, batch)
+        repeat.append(metrics["loss"].item())
+    del params, opt, metrics, step
+    launches = K.read()
+    losses, walls = hist["loss"], hist["step_time"]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in events
+                  if "gemm" in e.key.lower()) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    prof_wall_ms = walls[-1] * 1e3
+    med = statistics.median(walls[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = cfg.param_count()
+    flops = 6 * n_params * tokens
+    out = {"arch": TRAIN_ARCH, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lr": TRAIN_LR, "losses": losses,
+           "step_s": walls, "step_s_median_2_on": med,
+           "tokens_per_s": tokens / med, "param_count": n_params,
+           "model_flops_per_s": flops / med,
+           "fp32_peak_share": flops / med / FP32_PEAK,
+           "peak_device_bytes": peak, "launches": launches,
+           "repeated_batch_losses": repeat,
+           "first_five_mean": statistics.mean(losses[:5]),
+           "last_five_mean": statistics.mean(losses[-5:]),
+           "profiled_step": {
+               "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+               "idle_share": max(0.0, 1.0 - busy_ms / prof_wall_ms),
+               "gemm_ms": gemm_ms,
+               "device_ops": sum(e.count for e in events),
+               "top_device_ms": {e.key[:70]: e.self_device_time_total / 1e3
+                                 for e in top}},
+           "gradient_checks": checks, "run_s": run_s}
+    print(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} params (param_count), f32 weights and "
+          f"AdamW state, remat; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens at lr {TRAIN_LR}; the loop's log {lines}")
+    ln_v = math.log(cfg.vocab_size)
+    print(f"[train] first loss {losses[0]:.4f} against ln V {ln_v:.4f}; "
+          f"losses {losses}; mean of the first five "
+          f"{out['first_five_mean']:.4f}, of the last five "
+          f"{out['last_five_mean']:.4f}; the first batch repeated "
+          f"{REPEAT_STEPS} times: losses {repeat}")
+    print(f"[train] step wall median over steps 2-{TRAIN_STEPS} {med:.4f} s "
+          f"({tokens / med:.1f} tokens/s); model FLOP/s (6 N T) "
+          f"{flops / med:.4e}, {flops / med / FP32_PEAK:.4f} of the FP32 "
+          f"peak {FP32_PEAK:.3e}; peak device memory {peak} B; the run "
+          f"{run_s:.1f} s")
+    print(f"[train] profiled step {TRAIN_STEPS}: {out['profiled_step']}")
+    print(f"[train] kernel launches on the training path: {launches} (none "
+          f"of the four has a backward; the path runs the plain routes)")
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 11: non-finite losses {losses}")
+    check(ln_v <= losses[0] <= ln_v + 1.5,
+          f"phase 11: first loss {losses[0]}, want within 1.5 nats above "
+          f"ln V {ln_v}")
+    check(all(math.isfinite(x) for x in repeat)
+          and min(repeat[1:]) <= repeat[0] - REPEAT_DROP,
+          f"phase 11: one batch repeated {REPEAT_STEPS} times, losses "
+          f"{repeat}: want one {REPEAT_DROP} nats below the first")
+    check(launches == dict.fromkeys(K.wrappers, 0),
+          f"phase 11: the training path launched {launches}, want none")
+    check(busy_ms > 0, "phase 11: the profiled step shows no device time")
+    free_memory()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def free_memory() -> None:
     """Return what the last phase's objects held to the card: collect
     their reference cycles, then empty PyTorch's cache."""
@@ -3178,6 +3507,8 @@ def main() -> None:
     window = phase_window(K, args.seed, gclog)
     # phase 10: whisper-medium at full depth
     whisper = phase_whisper(K, args.seed, gclog)
+    # phase 11: training qwen2.5-3b
+    training = phase_training(K, args.seed, gclog)
     check("jax" not in sys.modules, "the port imported jax")
     paths = [(f"{m['arch']} {path}", m[path]["launches"])
              for m in models + [whisper]
@@ -3190,7 +3521,7 @@ def main() -> None:
         row["launches_by_path"] = by_path
         check(row["launches"] > 0, f"{name} never launched on a main path")
 
-    # phase 11: report
+    # phase 12: report
     wall = time.perf_counter() - t_start
     print(f"[done] the whole script took {wall:.1f} s; garbage "
           f"collections {gclog.summary()}; flash_decode device-time traces "
@@ -3198,7 +3529,7 @@ def main() -> None:
     print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
                       "wall_s": wall, "decode_traces": DECODE_TRACES,
                       "models": models, "cnn": cnns, "window": window,
-                      "whisper": whisper}))
+                      "whisper": whisper, "training": training}))
 
     print(smi)
     print(json.dumps({"ok": True, "device": {

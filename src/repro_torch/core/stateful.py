@@ -63,6 +63,7 @@ Where the port differs from the reference, and why:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -715,6 +716,46 @@ class StatefulStageRunner:
 # decode session: the stream's state
 # ---------------------------------------------------------------------------
 
+class RecomputeArena:
+    """A private pool of PyTorch's caching allocator for the next
+    recompute hand-off.  The standby's warm-up runs the hand-off's
+    re-prefill in it once (``warm``) and records the layers it ran; the
+    hand-off over the same layers (``use``) then draws the warm-up's
+    blocks again, which no decode step or build in between can take or
+    split.  In the shared cache they could: a hand-off there met a fresh
+    ``cudaMalloc`` on the card (PERF.md).  Any other
+    hand-off, and every one on the CPU, runs in the shared cache."""
+
+    def __init__(self, device: torch.device):
+        self.pool = self.index = None
+        self.warmed: Optional[Tuple[int, int]] = None
+        if device.type == "cuda":
+            self.index = device.index if device.index is not None \
+                else torch.cuda.current_device()
+            self.pool = torch.cuda.MemPool()
+
+    def _pool(self):
+        if self.pool is None:
+            return contextlib.nullcontext()
+        return torch.cuda.use_mem_pool(self.pool, self.index)
+
+    def warm(self, units: Tuple[int, int], run) -> None:
+        """Call ``run()`` (the re-prefill of ``units``, its result
+        dropped) in the pool, and keep the pool for the next hand-off over
+        ``units``."""
+        with self._pool():
+            run()
+        self.warmed = units
+
+    def use(self, units: Tuple[int, int]):
+        """The context a hand-off over ``units`` runs in: the pool once
+        after a warm-up of the same units, else the shared cache."""
+        if units != self.warmed:
+            return contextlib.nullcontext()
+        self.warmed = None
+        return self._pool()
+
+
 class DecodeSession:
     """Per-stream decode state shared by every pipeline in the pool.
 
@@ -744,6 +785,7 @@ class DecodeSession:
         self._ser_overhead_s: Optional[float] = None
         self._ser_bps: Optional[float] = None
         self._lock = make_lock("session", RANK_SESSION)
+        self.arena = RecomputeArena(self.device)
 
     @property
     def batch(self) -> int:
@@ -980,12 +1022,13 @@ class DecodeSession:
         if u0 >= u1:
             return
         r = self.runner
-        with self._lock:
-            T_len = self.pos
-            x_pad = self._bounds[u0].clone()           # (B, max_seq, D)
-        x_pad[:, T_len:] = 0
-        caches = r.recompute_fn(u0, u1)(r.params, x_pad, T_len)
-        synchronize(self.device)
+        with self.arena.use((u0, u1)):
+            with self._lock:
+                T_len = self.pos
+                x_pad = self._bounds[u0].clone()       # (B, max_seq, D)
+            x_pad[:, T_len:] = 0
+            caches = r.recompute_fn(u0, u1)(r.params, x_pad, T_len)
+            synchronize(self.device)
         with self._lock:
             self.cache.update(caches)
 
@@ -997,19 +1040,24 @@ class DecodeSession:
 
     def warm_recompute(self, a: int, b: int) -> None:
         """Run the re-prefill of the layers between splits ``a`` and ``b``
-        once on zeros at the live length and drop its result: the state is
-        not touched.  Its working set is left in the caching allocator for
-        the hand-off that will run the same re-prefill."""
+        once on zeros at the live length, in the session's
+        ``RecomputeArena``, and drop its result: the state is not touched.
+        The hand-off over the same layers (``recompute_layers``) draws its
+        working set from there."""
         u0 = unit_index_of_split(self.cfg, min(a, b))
         u1 = unit_index_of_split(self.cfg, max(a, b))
         if u0 >= u1 or self.pos == 0:
             return
         r = self.runner
-        with self._lock:
-            T_len = self.pos
-            x = torch.zeros_like(self._bounds[u0])
-        r.recompute_fn(u0, u1)(r.params, x, T_len)
-        synchronize(self.device)
+        fn = r.recompute_fn(u0, u1)
+
+        def run():
+            with self._lock:
+                T_len = self.pos
+                x = torch.zeros_like(self._bounds[u0])
+            fn(r.params, x, T_len)
+            synchronize(self.device)
+        self.arena.warm((u0, u1), run)
 
     # -- test/benchmark support ------------------------------------------
     def snapshot(self) -> dict:
@@ -1275,11 +1323,12 @@ class StatefulPipelinePool(PipelinePool):
                       owns_weights: Optional[bool] = None) -> float:
         """Build the Scenario-A standby, then run the re-prefill that
         switching to it from the active split would run, once on scratch
-        input (``DecodeSession.warm_recompute``).  The hand-off then finds
-        its temporaries in the caching allocator: a standby's build takes
-        the cached blocks, and the fresh ``cudaMalloc``s a hand-off then
-        made stretched it to twice its wall on the card (PERF.md).  The
-        build pays for them instead; the returned time includes it."""
+        input (``DecodeSession.warm_recompute``), in the session's
+        ``RecomputeArena``.  The hand-off then finds its temporaries there:
+        in the shared cache a standby's build or a decode step can take
+        them, and the fresh ``cudaMalloc``s a hand-off then made stretched
+        it to twice its wall on the card (PERF.md).  The build pays for
+        them instead; the returned time includes it."""
         sw = Stopwatch()
         super().build_standby(split, owns_weights)
         with self._lock:

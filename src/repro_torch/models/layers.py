@@ -10,11 +10,14 @@ so the two packages agree on the same weights.
 Attention implementations
 -------------------------
 ``naive``   materialises the full score matrix — small-shape oracle only.
-``chunked`` online softmax over KV blocks (flash-style) in plain torch.
+``chunked`` online softmax over KV blocks (flash-style) in plain torch,
+            with a blockwise backward (``_ChunkedAttention``): the route
+            that trains.
 ``kernel``  the hand-written flash-attention kernel
             (``repro_torch.kernels.flash_attention``; ``pallas``, the
             reference's name, is the same route): on a CPU tensor its
             wrapper runs the plain version, on a CUDA tensor the kernel.
+            Forward only: it raises where an input requires a gradient.
 No library attention is used.
 """
 from __future__ import annotations
@@ -130,16 +133,17 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
-                      q_chunk=1024, kv_chunk=1024):
-    """Flash-style online-softmax attention in plain torch (forward only).
+def _chunked_attention_fwd_impl(q, k, v, *, causal=True, window=None,
+                                q_offset=0, q_chunk=1024, kv_chunk=1024):
+    """Flash-style online-softmax attention in plain torch.
 
     Never materialises more than (B, KH, G, q_chunk, kv_chunk) scores.
     Walks q chunks (outer) and kv chunks (inner) as the reference's scans
     do, including its static sliding-window block skip.  A kv chunk that
     lies wholly in the causal future of a q chunk is skipped too: every
     score in it is masked, so it adds exactly zero to the softmax sums and
-    skipping it changes no bit of the result.
+    skipping it changes no bit of the result.  Returns ``(out, lse)``,
+    ``lse`` the f32 log-sum-exp ``(B, KH, G, Sq)`` the backward reads.
     """
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -161,7 +165,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         n_need = min(nk, -(-(window + q_chunk) // kv_chunk) + 1)
     else:
         n_need = nk
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = qg[qi].float()                        # (B, KH, G, qc, D)
         qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
@@ -191,10 +195,108 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", p, vg[ki].float())
             m = m_new
-        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+        l = l.clamp_min(1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))
     out = torch.stack(outs)                          # (nq, B, KH, G, qc, D)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * q_chunk, H, D)
-    return out[:, :Sq]
+    lse = torch.stack(lses, 3).reshape(B, KH, G, nq * q_chunk)
+    return out[:, :Sq], lse[..., :Sq]
+
+
+def _chunked_attention_bwd(q, k, v, out, lse, dout, *, causal, window,
+                           q_offset, q_chunk):
+    """The flash-attention backward (``_chunked_attention_bwd`` of the
+    reference): q chunks over the whole key range, ``p = exp(s - lse)``
+    recomputed from the saved log-sum-exp, padded query rows masked, and
+    ``D = sum(dO * O)``; products in f32, ``dq, dk, dv`` in the inputs'
+    dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qc = min(q_chunk, Sq)
+    nq = -(-Sq // qc)
+    pad_q = nq * qc - Sq
+    scale = float(np.float32(1.0 / np.sqrt(D)))
+    dev = q.device
+
+    def chunks(a):                                   # (nq, B, KH, G, qc, D)
+        a = F.pad(a, (0, 0, 0, 0, 0, pad_q))
+        return a.reshape(B, nq, qc, KH, G, D).permute(1, 0, 3, 4, 2, 5)
+
+    qg, og, dog = chunks(q), chunks(out), chunks(dout)
+    lse_g = F.pad(lse, (0, pad_q)).reshape(B, KH, G, nq, qc)
+    kf = k.float()
+    vf = v.float()
+    kpos = torch.arange(Sk, device=dev)
+    dk = torch.zeros((B, Sk, KH, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, KH, D), dtype=torch.float32, device=dev)
+    dqs = []
+    for qi in range(nq):
+        rows = qi * qc + torch.arange(qc, device=dev)
+        qvalid = rows < Sq
+        bias = _mask_bias(q_offset + rows, kpos, causal=causal,
+                          window=window)
+        bias = torch.where(qvalid[:, None], bias,
+                           torch.full_like(bias, NEG_INF))
+        qf = qg[qi].float()
+        dof = dog[qi].float()
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qf, kf) * scale \
+            + bias[None, None, None]
+        p = torch.exp(s - lse_g[:, :, :, qi, :, None])  # (B, KH, G, qc, Sk)
+        p = torch.where(qvalid[:, None], p, torch.zeros_like(p))
+        dv += torch.einsum("bhgqk,bhgqd->bkhd", p, dof)
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dof, vf)
+        d_term = (dof * og[qi].float()).sum(-1)         # (B, KH, G, qc)
+        ds = p * (dp - d_term[..., None]) * scale
+        dqs.append(torch.einsum("bhgqk,bkhd->bhgqd", ds, kf))
+        dk += torch.einsum("bhgqk,bhgqd->bkhd", ds, qf)
+    dq = torch.stack(dqs).permute(1, 0, 4, 2, 3, 5).reshape(
+        B, nq * qc, H, D)[:, :Sq]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """Flash attention with a blockwise backward (the reference's
+    ``_chunked_attention_vjp``): the forward saves ``(q, k, v, out,
+    lse)`` and the backward recomputes the softmax from them, so a
+    training step never keeps per-chunk softmax residuals (O(Sq * Sk))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+        out, lse = _chunked_attention_fwd_impl(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_chunk=q_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_attention_bwd(q, k, v, out, lse, dout,
+                                            **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                      q_chunk=1024, kv_chunk=1024):
+    """Flash-style attention in plain torch, forward and backward
+    blockwise (``_ChunkedAttention``); the forward as
+    ``_chunked_attention_fwd_impl`` computes it."""
+    return _ChunkedAttention.apply(q, k, v, causal, window, q_offset,
+                                   q_chunk, kv_chunk)
+
+
+def refuse_grad(route: str, plain: str, *tensors) -> None:
+    """A kernel has no backward (nor has the reference's ``pallas_call``):
+    raise where autograd would record one of ``tensors``, naming the
+    plain route that trains."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"the {route} route has no backward; train "
+                           f"through the plain route ({plain})")
 
 
 def decode_attention(q, k_cache, v_cache, *, pos, window=None):
@@ -239,6 +341,7 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, q_chunk=q_chunk)
     if impl in ("kernel", "pallas"):
+        refuse_grad("flash-attention kernel", 'impl="chunked"', q, k, v)
         return FA.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")

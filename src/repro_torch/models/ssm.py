@@ -14,12 +14,14 @@ Scan implementations (``impl``)
             is the same route): on a CPU tensor their wrappers run the
             plain version, on a CUDA tensor the kernel.  The default, so
             every scan on the card (prefill, decode step, masked recompute,
-            stateless request) runs the kernel.  The reference's prefill
+            stateless request) runs the kernel.  Forward only: it raises
+            where an input requires a gradient, as the reference's
+            ``pallas_call`` has no VJP.  The reference's prefill
             runs its jnp scan, which XLA compiles; an eager PyTorch loop
             over 1024 steps a layer would be no counterpart.
 ``plain``   the kernels' plain versions, the sequential recurrence in f32
             (``jnp``, the reference's name, is the same route): run only
-            where a caller asks for them by name.
+            where a caller asks for them by name, as ``train_loss`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ssd_scan as SD
+from repro_torch.models import layers as Lyr
 
 _KERNEL = ("kernel", "pallas")
 _PLAIN = ("plain", "jnp")
@@ -65,6 +68,8 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None, impl="kernel"):
     dt, x: (B,S,Di)  Bc, Cc: (B,S,N)  A: (Di,N)  h0: (B,Di,N)
     Returns y: (B,S,Di) in x's dtype, h_final (B,Di,N) f32."""
     if impl in _KERNEL:
+        Lyr.refuse_grad("mamba1_scan kernel", 'impl="plain"', dt, Bc, Cc, x,
+                        A, h0)
         return MS.mamba1_scan(dt, Bc, Cc, x, A, h0=h0)
     if impl in _PLAIN:
         return MS.mamba1_scan_plain(dt, Bc, Cc, x, A, h0=h0)
@@ -79,6 +84,8 @@ def mamba2_scan(dt, Bc, Cc, x, A, h0=None, impl="kernel"):
     reference's kernel route, y is the kernel's output (in x's dtype)
     cast to f32."""
     if impl in _KERNEL:
+        Lyr.refuse_grad("ssd_scan kernel", 'impl="plain"', dt, Bc, Cc, x, A,
+                        h0)
         y, h = SD.ssd_scan(dt, Bc, Cc, x, A, h0=h0)
     elif impl in _PLAIN:
         y, h = SD.ssd_scan_plain(dt, Bc, Cc, x, A, h0=h0)

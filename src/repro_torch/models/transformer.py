@@ -8,8 +8,9 @@ the text), ssm (stacked mamba1 layers), hybrid (stacked mamba2 layers plus
 one shared attention+MLP layer, ``params["shared"]``) and audio (whisper:
 a bidirectional encoder over stub frame embeddings, ``params["encoder"]``,
 and decoder layers with self and cross attention, LayerNorms with bias and
-sinusoidal absolute positions in place of RoPE).  ``train_loss`` waits
-for the training slice.  Params are a nested dict of
+sinusoidal absolute positions in place of RoPE).  ``train_loss`` is the
+full-sequence forward and the chunked cross entropy a training step
+differentiates.  Params are a nested dict of
 tensors with the reference's keys, shapes and ``(in, out)`` layout; the
 per-layer weights are stacked on a leading L axis
 (``params["layers"]["attn"]["wq"]`` is ``(L, d_model, H * head_dim)``), so
@@ -17,10 +18,13 @@ a JAX param pytree converts leaf by leaf (``repro_torch.params``).
 
 Where the port differs from the reference, and why:
 
-* **Eager layers.**  The reference scans (``lax.scan``, ``remat``) over
-  the stacked layers to keep its compiled program depth-independent; here
-  each entry point is one Python loop over the layers, and ``remat`` is
-  accepted and changes nothing (no backward pass runs here).
+* **Eager layers.**  The reference scans (``lax.scan``) over the stacked
+  layers to keep its compiled program depth-independent; here each entry
+  point is one Python loop over the layers.  ``remat`` wraps each layer
+  body (and each encoder layer) in ``torch.utils.checkpoint`` where the
+  reference wraps it in ``jax.checkpoint``, when autograd records a
+  gradient of the weights; a forward without one runs the bodies as they
+  are.
 * **In-place decode caches.**  ``decode_step`` writes the token's K/V
   into the cache's stacked tensors in place (one row, at the ring index)
   and returns a new dict holding the same K/V tensors and ``pos + 1``;
@@ -39,6 +43,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_decode as FD
@@ -292,7 +298,7 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (train and prefill)
 # ---------------------------------------------------------------------------
 
 def layer_params(params, idx: int):
@@ -303,18 +309,52 @@ def layer_params(params, idx: int):
     return walk(params["layers"])
 
 
+def unstack_layers(stack, n: int) -> list:
+    """A stack of ``n`` layers' weights (leaves with a leading L axis) as
+    ``n`` dicts of views, split once by ``torch.unbind``: a gradient
+    through them is stacked once per leaf, where indexing each layer
+    (``layer_params``) would add a zero tensor of the whole stack per
+    layer."""
+    if isinstance(stack, dict):
+        parts = {k: unstack_layers(v, n) for k, v in stack.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(stack, 0))
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
+def _remat(fn, remat: bool, params):
+    """``fn`` under activation checkpointing (the reference's
+    ``jax.checkpoint``) where ``remat`` asks for it and autograd records a
+    gradient of ``params``; ``fn`` itself otherwise."""
+    if not (remat and torch.is_grad_enabled() and _needs_grad(params)):
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
 def encode_audio(cfg, params, frames, *, attn_impl="chunked", remat=True):
     """Whisper's encoder over stub frame embeddings ``(B, T_enc, D)``:
     sinusoidal positions added in ``frames``' dtype, every encoder layer
-    non-causal, then the encoder's final norm."""
+    non-causal (each checkpointed under ``remat``), then the encoder's
+    final norm."""
     x = frames + Lyr.sinusoidal_positions(
         frames.shape[1], cfg.d_model, device=frames.device).to(
             frames.dtype)[None]
     enc = params["encoder"]
-    for li in range(cfg.encoder.num_layers):
-        lp = layer_params(enc, li)
-        x, _, _ = attn_block_full(cfg, lp, x, None, impl=attn_impl,
-                                  causal=False)
+
+    def body(lp, x):
+        return attn_block_full(cfg, lp, x, None, impl=attn_impl,
+                               causal=False)[0]
+    body = _remat(body, remat, enc)
+    for lp in unstack_layers(enc["layers"], cfg.encoder.num_layers):
+        x = body(lp, x)
     return _apply_norm(cfg, enc["final_norm"], x)
 
 
@@ -331,8 +371,9 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
     "v"}}`` with one KV per shared-block application.
     ``attn_impl``: ``layers.attention``'s (``"kernel"``/``"pallas"`` for
     the flash-attention kernel); ``ssm_impl``: the scans' (``models.ssm``,
-    the kernels by default).  ``remat`` changes nothing (module
-    docstring)."""
+    the kernels by default).  ``remat`` checkpoints each layer body when a
+    gradient is recorded (module docstring); the hybrid's shared block
+    runs unwrapped, as in the reference."""
     _check_family(cfg)
     x = embed_inputs(cfg, params, inputs)
     B, S, _ = x.shape
@@ -343,35 +384,41 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
     if cfg.family == "audio":
         x = x + text_positions(cfg, S, x.device).to(x.dtype)
 
-    def attn(p, x, kvs):
-        x, kv, a = attn_block_full(cfg, p, x, rope_cs, impl=attn_impl,
-                                   window=window)
-        if collect_kv:
-            kvs.append(kv)
-        return x, a
+    def attn_body(p, x):
+        return attn_block_full(cfg, p, x, rope_cs, impl=attn_impl,
+                               window=window)
+    attn = _remat(attn_body, remat, params)
 
     def stacked(kvs):
         return {"k": torch.stack([k for k, _ in kvs]),
                 "v": torch.stack([v for _, v in kvs])}
 
     kvs, caches = [], []
+    layers = unstack_layers(params["layers"], L)
     if cfg.family in _ATTN_FAMILIES:
-        for li in range(L):
-            x, a = attn(layer_params(params, li), x, kvs)
+        for lp in layers:
+            x, kv, a = attn(lp, x)
             aux = aux + a
+            if collect_kv:
+                kvs.append(kv)
         if collect_kv:
             kv_tree = stacked(kvs)
     elif cfg.family == "audio":
         enc_out = encode_audio(cfg, params, inputs["frames"],
                                attn_impl=attn_impl, remat=remat)
-        ckvs = []
-        for li in range(L):
-            lp = layer_params(params, li)
-            x, a = attn(lp, x, kvs)
-            aux = aux + a
+
+        def dec_body(lp, x, enc_out):
+            x, kv, a = attn_body(lp, x)
             ckv = _enc_cross_kv(cfg, lp, enc_out)
             x = cross_block_full(cfg, lp, x, ckv, impl=attn_impl)
+            return x, a, kv, ckv
+        dec = _remat(dec_body, remat, params)
+        ckvs = []
+        for lp in layers:
+            x, a, kv, ckv = dec(lp, x, enc_out)
+            aux = aux + a
             if collect_kv:
+                kvs.append(kv)
                 ckvs.append(ckv)
         if collect_kv:
             kv_tree = dict(stacked(kvs),
@@ -379,17 +426,22 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
                            cv=torch.stack([v for _, v in ckvs]))
     else:
         period = cfg.hybrid_period if cfg.family == "hybrid" else 0
-        for li in range(L):
-            lp = layer_params(params, li)
+
+        def ssm_body(lp, x):
             y, cache = SSM.ssm_block(cfg, lp["mamba"],
                                      _apply_norm(cfg, lp["ln"], x),
                                      impl=ssm_impl)
-            x = x + y
+            return x + y, cache
+        ssm = _remat(ssm_body, remat, params)
+        for li, lp in enumerate(layers):
+            x, cache = ssm(lp, x)
             if collect_kv:
                 caches.append(cache)
             if period and (li + 1) % period == 0:
-                x, a = attn(params["shared"], x, kvs)
+                x, kv, a = attn_body(params["shared"], x)
                 aux = aux + a
+                if collect_kv:
+                    kvs.append(kv)
         if collect_kv:
             kv_tree = {"conv": torch.stack([c["conv"] for c in caches]),
                        "ssm": torch.stack([c["ssm"] for c in caches])}
@@ -397,6 +449,54 @@ def forward_hidden(cfg, params, inputs, *, attn_impl="chunked", window=None,
                 kv_tree = {"mamba": kv_tree, "attn": stacked(kvs)}
     x = _apply_norm(cfg, params["final_norm"], x)
     return x, aux, kv_tree
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def chunked_cross_entropy(cfg, params, hidden, labels, chunk=512):
+    """Next-token cross entropy without materialising (B, S, V) logits:
+    ``chunk`` rows of logits at a time, in f32.
+
+    hidden: (B, S, D); labels: (B, S) int, -1 = ignore.  The mean over
+    the labelled rows (over at least one)."""
+    w = lm_head_weights(cfg, params)
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    hp = F.pad(hidden, (0, 0, 0, nc * chunk - S))
+    lp = F.pad(labels, (0, nc * chunk - S), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nc):
+        h = hp[:, c * chunk:(c + 1) * chunk]
+        lab = lp[:, c * chunk:(c + 1) * chunk]
+        logits = (h @ w).float()                             # (B, c, V)
+        logz = torch.logsumexp(logits, -1)
+        tgt = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
+        valid = (lab >= 0).float()
+        tot = tot + ((logz - tgt) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp_min(1.0)
+
+
+def train_loss(cfg, params, batch, *, attn_impl="chunked", remat=True):
+    """batch: ``{"tokens", "labels", [frontend inputs]}`` -> ``(loss,
+    {"ce", "aux"})``: the full-sequence forward under the config's window,
+    then ``chunked_cross_entropy`` (the vision rows labelled -1) plus the
+    MoE's load-balance loss.  The SSM scans run their plain route, the
+    reference's ``jnp`` scan: a kernel has no backward."""
+    hidden, aux, _ = forward_hidden(cfg, params, batch, attn_impl=attn_impl,
+                                    window=cfg.sliding_window, remat=remat,
+                                    ssm_impl="plain")
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        nf = batch["vision_embeds"].shape[1]
+        ignore = labels.new_full((labels.shape[0], nf), -1)
+        labels = torch.cat([ignore, labels], dim=1)
+    ce = chunked_cross_entropy(cfg, params, hidden, labels)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg, params, inputs, *, max_seq, attn_impl="chunked", window=None,

@@ -6,7 +6,8 @@ dict of tensors with the same keys, shapes and ``(in, out)`` layout.  The
 conversion goes through ``torch.from_numpy``, so f32 weights arrive bit
 for bit.  It takes numpy arrays only and imports nothing of the JAX
 package.  A checkpoint written by ``repro.checkpoint.save_pytree`` loads
-through ``load_npz``.
+through ``load_npz``, and the reference's optimizer state through
+``adamw_state_from_numpy``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import load_pytree
+from repro_torch.optim import AdamWState
 
 
 def from_numpy(tree, device="cpu") -> Any:
@@ -52,3 +54,12 @@ def load_npz(path: str, device="cpu") -> Dict[str, Any]:
     """A flat-key ``.npz`` checkpoint (either package's) as the port's
     nested dict of tensors on ``device``."""
     return unflatten(load_pytree(path, device=device))
+
+
+def adamw_state_from_numpy(step, m, v, device="cpu"):
+    """The reference's ``AdamWState`` (its ``step``, ``m`` and ``v`` as
+    numpy, e.g. ``jax.tree.map(np.asarray, state)``) as the port's
+    ``optim.AdamWState``: the step a host integer, the moments f32
+    tensors on ``device`` with the params' keys."""
+    return AdamWState(int(np.asarray(step)), from_numpy(m, device),
+                      from_numpy(v, device))

@@ -68,7 +68,8 @@ from repro_torch.core.heap import freeze_startup_heap
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.state_handoff import per_layer_state_bytes
 from repro_torch.core.stateful import (HANDOFF_META_KEY, HandoffCorrupted,
-                                       StatefulStageRunner, _as_tokens,
+                                       RecomputeArena, StatefulStageRunner,
+                                       _as_tokens,
                                        _from_payload, _is_kv,
                                        _payload_entry, _unit_state_keys,
                                        payload_checksum,
@@ -129,6 +130,7 @@ class SessionManager:
         self._clock = 0
         self._step_fn = None                # lazy local-decode fn
         self._lock = make_lock("session-manager", RANK_SESSION_MANAGER)
+        self.arena = RecomputeArena(self.device)
         self._slots: List[Slot] = [Slot(j) for j in range(self.num_slots)]
         self._parked: Dict[str, dict] = {}
         # fixed-bucket state buffers.  Shapes/dtypes come from one zero
@@ -515,19 +517,23 @@ class SessionManager:
             return
         r = self.runner
         fn = r.recompute_fn(u0, u1)          # runner lock first (42 < 47)
-        with self._lock:
-            x0 = self._bounds[u0]                        # (B, max_seq, D)
-            lengths = self._pos_dev.clone()
-        caches = fn(r.params, x0, lengths)
-        synchronize(self.device)
+        with self.arena.use((u0, u1)):
+            with self._lock:
+                x0 = self._bounds[u0]                    # (B, max_seq, D)
+                lengths = self._pos_dev.clone()
+            caches = fn(r.params, x0, lengths)
+            synchronize(self.device)
         with self._lock:
             self.cache.update(caches)
 
     def warm_recompute(self, a: int, b: int) -> None:
         """Run the re-prefill of the layers between splits ``a`` and ``b``
-        once on zeros at the live lengths and drop its result (the state
-        is not touched), as ``DecodeSession.warm_recompute`` does for a
-        standby build."""
+        once on zeros at the live lengths in the manager's
+        ``RecomputeArena`` and drop its result (the state is not touched),
+        as ``DecodeSession.warm_recompute`` does for a standby build.  The
+        zero input is taken outside the arena: the hand-off reads the
+        boundary buffer in place, so the arena sees the same allocations
+        in both."""
         u0 = unit_index_of_split(self.cfg, min(a, b))
         u1 = unit_index_of_split(self.cfg, max(a, b))
         if u0 >= u1 or self.pos == 0:
@@ -536,9 +542,13 @@ class SessionManager:
         fn = r.recompute_fn(u0, u1)
         with self._lock:
             x = torch.zeros_like(self._bounds[u0])
-            lengths = self._pos_dev.clone()
-        fn(r.params, x, lengths)
-        synchronize(self.device)
+
+        def run():
+            with self._lock:
+                lengths = self._pos_dev.clone()
+            fn(r.params, x, lengths)
+            synchronize(self.device)
+        self.arena.warm((u0, u1), run)
 
     # -- local decode (no edge/cloud split) -------------------------------
     def decode_step(self) -> torch.Tensor:

@@ -5,8 +5,10 @@ and internvl2-76b's full-width shapes, too), short kernel-routed
 decodes against the reference route for the dense, moe, ssm, hybrid,
 vlm and audio families and for the standalone ``decode_step`` on a
 windowed ring, the
-stateless pipeline on the prefill kernel, and transfer hand-offs that
-take no page-locked block from the host allocator.
+stateless pipeline on the prefill kernel, transfer hand-offs that
+take no page-locked block from the host allocator, and the training
+route: the chunked attention's backward against autograd through the
+naive attention, and a train step on the card against the CPU's.
 Imports only torch and the port, so it also runs where JAX is absent.
 Every test here needs the card and skips without it:
 
@@ -790,3 +792,96 @@ def test_frontend_kernel_route_matches_plain_route(cuda, arch):
         mid = runner.run_units(inputs, 0, split + 1)
         out = runner.run_units(mid, split + 1, runner.num_units)["logits"]
         assert torch.equal(out, mono), split
+
+
+# ---------------------------------------------------------------------------
+# training: the chunked attention's backward and a train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,H,KH,D,window", [(300, 8, 2, 64, None),
+                                             (700, 8, 8, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_backward_matches_naive_autograd(cuda, S, H, KH,
+                                                           D, window, dtype):
+    """``attention(impl="chunked")``'s blockwise backward against autograd
+    through ``naive_attention`` on the card (chunks of 128: ragged tails,
+    the causal skip, the window's block skip).  f32: 1e-4 of each
+    gradient's largest |value| (the reference's f32 attention tolerance);
+    bf16: 2%, two bf16 roundings (of the saved output, which enters the
+    backward's ``sum(dO * O)``, and of the result) of 2**-8 each."""
+    from repro_torch.models import layers as Lyr
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, S, h, D, generator=g, device=cuda, dtype=dtype)
+               for h in (H, KH, KH))
+    dout = torch.randn(2, S, H, D, generator=g, device=cuda, dtype=dtype)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return [out] + list(torch.autograd.grad(out, leaves, dout))
+    got = grads(lambda a, b, c: Lyr.chunked_attention(
+        a, b, c, window=window, q_chunk=128, kv_chunk=128))
+    want = grads(lambda a, b, c: Lyr.naive_attention(a, b, c, window=window))
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype, name
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= limit * y.float().abs().max().item(), (name, err)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One reduced qwen2.5-3b ``make_train_step`` step in f32 on the card
+    against the same step on the CPU from the same weights and batch: the
+    loss and the grad norm to 1e-4.  AdamW's first step moves each element
+    by about the rate, its sign the gradient's, so an element whose
+    gradient is near rounding noise (the key bias's is zero in exact
+    arithmetic) moves either way on either device.  Each element is held
+    to 1e-6 plus ``lr * min(2, 2e-4 / r)``, ``r`` its CPU gradient's
+    |value| over its leaf's largest: about 1e-6 where the gradient is
+    large, twice the rate where the sign can flip (the devices' gradients
+    held to 1e-4 of each leaf's largest, the reference's f32 tolerance)."""
+    from repro_torch.core.stages import tree_leaves, tree_map
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.training import make_train_step
+    cfg = get_config("qwen2.5-3b").reduced()
+    params = init_model(cfg, device="cpu", seed=8)
+    batch = next(iter(SyntheticTokens(cfg, 2, 32, seed=9)))
+    lr = 1e-4                                     # make_train_step's AdamW
+    step, init_opt = make_train_step(cfg)
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    loss, _ = T.train_loss(cfg, live, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    found = iter(torch.autograd.grad(loss, tree_leaves(live),
+                                     allow_unused=True))
+
+    def limit(p):
+        g = next(found)
+        a = torch.zeros_like(p) if g is None else g.abs()
+        r = a / a.max() if a.max() > 0 else a
+        return 1e-6 + lr * torch.clamp(2e-4 / r, max=2.0)
+    limits = tree_map(limit, params)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        p, _, m = step(p, init_opt(p), b)
+        out[str(dev)] = (_to(p, "cpu"), {k: v.item() for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out[str(cuda)]
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-4
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+
+    def leaves(a, b, lim, name=""):
+        if isinstance(a, dict):
+            for k in a:
+                yield from leaves(a[k], b[k], lim[k], f"{name}/{k}")
+        else:
+            yield name, (a - b).abs(), lim
+    for name, d, lim in leaves(pg, pc, limits):
+        assert bool((d <= lim).all()), (name, (d / lim).max().item())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
