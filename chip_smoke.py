@@ -198,7 +198,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                step wall, tokens/s, model FLOP/s (6 N T) as a share of
                the FP32 peak, the peak memory and the profiled step's
                busy time, idle share and top device operations.
-12. report   — prints the script's wall, the ``kernels`` JSON line, the
+12. sharding — qwen2.5-3b only, after its phase 7, its weights loaded
+               (full width and depth, bf16): a 2-way tensor-parallel cloud
+               mesh (``repro_torch.distributed.tp``), one shard a card
+               where there are two cards, else both on ``cuda:0``
+               (``set_mesh_devices``; the mapping is printed).  (a) both
+               attention kernels at one shard's shapes (8 query heads over
+               1 KV head of 128: flash_decode at pos 64 / 1024 / 2048,
+               flash_attention causal at 1024 and 2048 rows) against their
+               plain versions in f32 and bf16, and their times; (b) a
+               1024-token request through the stateless pipeline on one
+               device, then switch_b2 onto the mesh at the same split,
+               switch_a to another split on it and switch_b2 back: logits
+               within 5% of the largest of the first request's, two
+               requests on the mesh bit-equal, each mesh transition on its
+               ``SwitchReport`` and ``ReshardReport`` moving no weight
+               bytes (built pipelines placed theirs at build), and the
+               launches of each request (the cloud range's scaled by tp);
+               (c) the stateful pipeline (prompt 1024, max_seq 2048): 8
+               steps, switch_b2 onto the mesh at the same split, 8 steps,
+               back, 8 steps, each step's logits within 5% of an
+               unswitched session's fed the same tokens, each transition
+               moving exactly the live cloud-range state, and each step's
+               launches; (d) prints the request's and the step's wall and
+               busy time on the mesh beside one device's, the all-reduces
+               a step and their device time, peak memory,
+               ``BuildReport.t_reshard`` and ``calibrate_mesh``'s scales
+               beside the mapping (with both shards on one card they are
+               fitted to walls with no link in them: not a tensor-parallel
+               speed).
+13. report   — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -564,8 +593,72 @@ FA_WSHAPES = ((1500, 1500, False), (448, 1500, False), (448, 448, True))
 FA_XFULL = dict(B=1, H=48, KH=8, D=128, S=6144, window=4096)
 
 
-def phase_prefill_kernel(FA, gen) -> dict:
+def time_attention(FA, inputs, full, Sq, Sk, causal) -> dict:
+    """Kernel, plain version and one library call at a full-width
+    attention shape (``full``: B, H, KH, D and a window), bf16, beside the
+    bound; ``inputs(B, Sq, Sk, H, KH, D, dtype)`` makes one set.  Inputs
+    rotate over > 128 MB of copies, so no launch finds them in the 50 MB
+    L2."""
     from repro_torch.core.hardware import H100
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
+    S = Sq
+    W = full.get("window")
+    per_call = 2 * B * (Sq * H + Sk * KH) * D
+    n = max(2, -(-128 * 2 ** 20 // per_call))
+    sets = [inputs(B, Sq, Sk, H, KH, D, torch.bfloat16) for _ in range(n)]
+    # a window takes the library call an explicit mask: the band
+    ar = torch.arange(S, device="cuda")
+    band = None if W is None else \
+        (ar[None, :] <= ar[:, None]) & (ar[None, :] > ar[:, None] - W)
+
+    def kernel(i):
+        return FA.flash_attention(*sets[i % n], causal=causal, window=W)
+
+    def plain(i):
+        return FA.flash_attention_plain(*sets[i % n], causal=causal,
+                                        window=W)
+
+    def library(i):
+        q, k, v = (t.transpose(1, 2) for t in sets[i % n])
+        if band is None:
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
+
+    # the library call computes the same function: hold it to the kernel
+    ref = kernel(0)
+    lib_err = max_diff(library(0).transpose(1, 2), ref)
+    lib_tol = LIB_RTOL * ref.float().abs().max().item()
+    check(lib_err <= lib_tol, f"library yardstick disagrees at Sq={Sq} "
+                              f"Sk={Sk}: {lib_err} > {lib_tol}")
+    iters = 20
+    # plain, kernel, kernel, plain: compare the two within one call
+    plain1 = cuda_ms(plain, iters)
+    kern1 = cuda_ms(kernel, iters)
+    kern2 = cuda_ms(kernel, iters)
+    plain2 = cuda_ms(plain, iters)
+    lib_ms = cuda_ms(library, iters)
+    q, k, _ = sets[0]
+    t_ops = FA.bound_flops(q, k, causal=causal, window=W) / H100.flops * 1e3
+    t_bytes = FA.bound_bytes(q, k) / H100.hbm_bw * 1e3
+    chain, mean = FA.schedule_chain(B, Sq, Sk, H, causal=causal, window=W,
+                                    q_offset=0)
+    t = {"S": S, "Sk": Sk, "causal": causal, "H": H, "KH": KH, "D": D,
+         "window": W, "ms": min(kern1, kern2),
+         "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
+         "library_max_abs_err": lib_err, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "runs_ms": {"kernel": [kern1, kern2], "plain": [plain1, plain2]}}
+    print(f"[kernel] flash_attention full-width bf16 causal={causal} "
+          f"H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} window={W}: "
+          f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+          f"library {lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}); schedule chain "
+          f"{chain} key tiles, mean {mean:.2f} a consumer")
+    return t
+
+
+def phase_prefill_kernel(FA, gen) -> dict:
     errs = {"float32": 0.0, "bfloat16": 0.0}
     rel = {"bfloat16": 0.0}         # largest err / max|plain| in bf16
 
@@ -638,9 +731,7 @@ def phase_prefill_kernel(FA, gen) -> dict:
           f"{errs}, bf16 at most {rel['bfloat16']:.3e} of max|plain| "
           f"(tolerances f32 {FP32_ATOL}, bf16 {BF16_RTOL} of max|plain|)")
 
-    # timing at the full-width shapes, bf16; inputs rotate over > 128 MB
-    # of copies, so no launch finds its inputs in the 50 MB L2
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # timing at the full-width shapes, bf16
     timed = []
     shapes = [(full, S, S, True) for full in (FA_FULL, FA_ZFULL)
               for S in FA_FULL_S]
@@ -649,68 +740,7 @@ def phase_prefill_kernel(FA, gen) -> dict:
                (FA_VFULL, FA_FULL_S[0], FA_FULL_S[0], True)]
     shapes += [(FA_WFULL,) + shape for shape in FA_WSHAPES]
     for full, Sq, Sk, causal in shapes:
-        B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
-        S = Sq
-        W = full.get("window")
-        per_call = 2 * B * (Sq * H + Sk * KH) * D
-        n = max(2, -(-128 * 2 ** 20 // per_call))
-        sets = [inputs(B, Sq, Sk, H, KH, D, torch.bfloat16)
-                for _ in range(n)]
-        # a window takes the library call an explicit mask: the band
-        ar = torch.arange(S, device="cuda")
-        band = None if W is None else \
-            (ar[None, :] <= ar[:, None]) & (ar[None, :] > ar[:, None] - W)
-
-        def kernel(i):
-            return FA.flash_attention(*sets[i % n], causal=causal, window=W)
-
-        def plain(i):
-            return FA.flash_attention_plain(*sets[i % n], causal=causal,
-                                            window=W)
-
-        def library(i):
-            q, k, v = (t.transpose(1, 2) for t in sets[i % n])
-            if band is None:
-                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
-            return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
-
-        # the library call computes the same function: hold it to the kernel
-        ref = kernel(0)
-        lib_err = max_diff(library(0).transpose(1, 2), ref)
-        lib_tol = LIB_RTOL * ref.float().abs().max().item()
-        check(lib_err <= lib_tol, f"library yardstick disagrees at Sq={Sq} "
-                                  f"Sk={Sk}: {lib_err} > {lib_tol}")
-        iters = 20
-        # plain, kernel, kernel, plain: compare the two within one call
-        plain1 = cuda_ms(plain, iters)
-        kern1 = cuda_ms(kernel, iters)
-        kern2 = cuda_ms(kernel, iters)
-        plain2 = cuda_ms(plain, iters)
-        lib_ms = cuda_ms(library, iters)
-        q, k, _ = sets[0]
-        t_ops = FA.bound_flops(q, k, causal=causal, window=W) / H100.flops \
-            * 1e3
-        t_bytes = FA.bound_bytes(q, k) / H100.hbm_bw * 1e3
-        chain, mean = FA.schedule_chain(B, Sq, Sk, H, causal=causal,
-                                        window=W, q_offset=0)
-        timed.append({"S": S, "Sk": Sk, "causal": causal, "H": H, "KH": KH,
-                      "D": D, "window": W,
-                      "ms": min(kern1, kern2),
-                      "plain_ms": min(plain1, plain2), "library_ms": lib_ms,
-                      "library_max_abs_err": lib_err,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations",
-                      "runs_ms": {"kernel": [kern1, kern2],
-                                  "plain": [plain1, plain2]}})
-        t = timed[-1]
-        print(f"[kernel] flash_attention full-width bf16 causal={causal} "
-              f"H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} window={W}: "
-              f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
-              f"library {lib_ms:.5f} ms (max abs err {lib_err:.3e}), bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']}); schedule chain "
-              f"{chain} key tiles, mean {mean:.2f} a consumer")
-        del sets
+        timed.append(time_attention(FA, inputs, full, Sq, Sk, causal))
     first = timed[0]                # qwen2.5-3b's served prompt
     B, H, KH, D = (FA_FULL[x] for x in ("B", "H", "KH", "D"))
     return {"name": "flash_attention", "route": "cuda",
@@ -2924,24 +2954,30 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
                                   stateless_request(cfg, seed + 2), extra,
                                   MAX_SEQ)
             free_memory()
-        sv = None
+        sv = sh = None
         if arch == SERVE_ARCH:
             t7 = time.perf_counter()
             sv = phase_serving(K, cfg, params, ckpt, seed, gclog)
             sv["phase_wall_s"] = time.perf_counter() - t7
             print(f"[serving] phase 7 took {sv['phase_wall_s']:.1f} s")
+            free_memory()
+            # phase 12 keeps its own peak: the model's so far is kept here
+            peak_before = torch.cuda.max_memory_allocated()
+            sh = phase_sharding(K, cfg, params, seed, gclog)
     finally:
         if ckpt is not None:
             os.remove(ckpt)
     del params
     peak = torch.cuda.max_memory_allocated()
+    if sh is not None:
+        peak = max(peak, peak_before)
     free_memory()
     # the startup-heap freeze (core/heap.py) must pin nothing of a model
     left = torch.cuda.memory_allocated()
     check(left <= 2 ** 30, f"{arch} left {left} B on the card after its "
           f"phases")
     wall = time.perf_counter() - t0
-    print(f"[{arch}] phases 4-{7 if sv else 6} took {wall:.1f} s; checkpoint "
+    print(f"[{arch}] phases 4-{12 if sh else 7 if sv else 6} took {wall:.1f} s; checkpoint "
           f"{sl['checkpoint_bytes']} B; peak device memory {peak} B; "
           f"left after freeing {left} B")
     out = {"arch": arch, "num_layers": L, "splits": splits,
@@ -2949,9 +2985,326 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
            "left_device_bytes": left, "stateful": sl, "stateless": st}
     if sv is not None:
         out["serving"] = sv
+    if sh is not None:
+        out["sharding"] = sh
     if sa is not None:
         out["standalone"] = sa
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded cloud stage
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (2,)
+SHARD_STEPS = 8
+# one shard's attention at qwen2.5-3b's width on the 2-way mesh: 8 of the
+# 16 query heads over the 1 KV head they read
+FD_SHARD = dict(B=1, H=8, KH=1, S=MAX_SEQ, D=128)
+FA_SHARD = dict(B=1, H=8, KH=1, D=128)
+SHARD_POS = (64, 1024, 2048)
+
+
+def shard_mapping() -> list:
+    """One shard a card where there are two, else both on ``cuda:0``."""
+    n = SHARD_MESH[-1]
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def shard_kernels(FA, FD, seed: int) -> dict:
+    """12a: both attention kernels at one shard's shapes against their
+    plain versions (f32 and bf16), and their times in bf16."""
+    errs, rel, hold = tally()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def inputs(B, Sq, Sk, H, KH, D, dtype):
+        return (rand((B, Sq, H, D), dtype), rand((B, Sk, KH, D), dtype),
+                rand((B, Sk, KH, D), dtype))
+
+    B, H, KH, S, D = (FD_SHARD[x] for x in ("B", "H", "KH", "S", "D"))
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        q = rand((B, 1, H, D), dtype)
+        k, v = rand((B, KH, S, D), dtype), rand((B, KH, S, D), dtype)
+        for pos in SHARD_POS:
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
+                 FD.flash_decode_attention_plain(q, k, v, pos=pos_t),
+                 f"flash_decode shard {FD_SHARD} pos {pos}", bf16)
+        for Sq in FA_FULL_S:
+            qa, ka, va = inputs(B, Sq, Sq, H, KH, D, dtype)
+            hold(FA.flash_attention(qa, ka, va, causal=True),
+                 FA.flash_attention_plain(qa, ka, va, causal=True),
+                 f"flash_attention shard H={H} KH={KH} S={Sq}", bf16)
+    decode = time_decode(FD, rand, B, H, KH, S, D)
+    prefill = [time_attention(FA, inputs, FA_SHARD, Sq, Sq, True)
+               for Sq in FA_FULL_S]
+    print(f"[shard] kernels at a shard's shapes match their plain "
+          f"versions: max abs err {errs}, bf16 at most "
+          f"{rel['bfloat16']:.3e} of max|plain|; flash_decode n_split "
+          f"{FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1])}")
+    return {"max_abs_err": errs, "bf16_rel": rel["bfloat16"],
+            "flash_decode": decode, "flash_attention": prefill}
+
+
+def all_reduce_ms(shape, devices, calls: int) -> float:
+    """Device milliseconds of ``calls`` all-reduces of bf16 partials of
+    ``shape`` over ``devices`` (CUDA events)."""
+    from repro_torch.distributed import tp as TP
+    parts = [torch.randn(shape, device=d, dtype=torch.bfloat16)
+             for d in devices]
+    before = TP.all_reduce.calls
+    ms = cuda_ms(lambda i: TP.all_reduce(parts, devices), 50) * calls
+    TP.all_reduce.calls = before
+    return ms
+
+
+def phase_sharding(K, cfg, params, seed, gclog: GcLog) -> dict:
+    """Phase 12, qwen2.5-3b at full width and depth (its weights loaded):
+    the kernels at a shard's shapes, then the stateless and the stateful
+    pipelines moved onto a 2-way tensor-parallel mesh and back."""
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.core.profiler import calibrate_mesh, profile_transformer
+    from repro_torch.core.stages import StageRunner
+    from repro_torch.core.stateful import make_stateful_manager
+    from repro_torch.core.switching import PipelineManager
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.launch.mesh import reset_mesh_devices, set_mesh_devices
+
+    t0 = time.perf_counter()
+    mapping = shard_mapping()
+    tp = SHARD_MESH[-1]
+    set_mesh_devices(mapping)
+    one_card = len(set(mapping)) < tp
+    print(f"[shard] mesh {SHARD_MESH} on {mapping} "
+          f"({torch.cuda.device_count()} card(s) visible): "
+          + ("every shard on one card: no link between the shards, and no "
+             "tensor-parallel speed-up is measured" if one_card
+             else "one shard a card"))
+    try:
+        kern = shard_kernels(FA, FD, seed + 12)
+        free_memory()
+        L = cfg.num_layers
+        split, other = L // 2, L // 4
+        torch.cuda.reset_peak_memory_stats()
+        K.reset()
+        # --- 12b: the stateless pipeline ------------------------------
+        gclog.label = "qwen2.5-3b phase 12b"
+        prompt = stateless_request(cfg, seed + 2)
+        runner = StageRunner(cfg, params, attn_impl="kernel", device="cuda")
+        mgr = PipelineManager(runner, split=split, net=NetworkModel(20.0),
+                              sample_inputs=prompt)
+        request_ms = {"one device": [], "mesh": []}
+        timings = []
+
+        def serve(at: int, on_mesh: bool):
+            before = K.read()
+            logits, timing = mgr.serve(prompt)
+            torch.cuda.synchronize()
+            got = K.since(before)
+            want = expected(K, cfg, 0, at, "full")
+            cloud = expected(K, cfg, at, L, "full")
+            for name, n in scaled(cloud, tp if on_mesh else 1).items():
+                want[name] += n
+            check(got == want, f"phase 12b: a request at split {at} "
+                               f"(mesh {on_mesh}) launched {got}, want {want}")
+            request_ms["mesh" if on_mesh else "one device"].append(
+                (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
+                * 1e3)
+            if on_mesh:
+                timings.append(timing)
+            return logits.float()
+
+        first = serve(split, False)
+        scale = first.abs().max().item()
+        mgr.set_mesh_shape(SHARD_MESH)
+        reps = [mgr.repartition("switch_b2", split)]
+        ar0 = TP.all_reduce.calls
+        on_mesh = [serve(split, True), serve(split, True)]
+        ar_request = (TP.all_reduce.calls - ar0) // 2
+        check(torch.equal(on_mesh[0], on_mesh[1]),
+              "phase 12b: two requests on one mesh are not bit-equal")
+        mgr.build_standby(other)
+        reps.append(mgr.repartition("switch_a", other))
+        mgr.drain()
+        on_mesh.append(serve(other, True))
+        prof_mesh = profile_step(lambda: mgr.serve(prompt)[0],
+                                 request_bound_ms(cfg, params, PROMPT),
+                                 device_kernels(cfg))[1]
+        mgr.set_mesh_shape(None)
+        reps.append(mgr.repartition("switch_b2", other))
+        back = serve(other, False)
+        reshards = list(mgr.pool.reshards)
+        shut(mgr)
+        mesh_diffs = [max_diff(x, first) for x in on_mesh]
+        check(max(mesh_diffs) <= LOGIT_RTOL * scale,
+              f"phase 12b: mesh logits differ from one device's by "
+              f"{mesh_diffs} (> {LOGIT_RTOL} of {scale})")
+        check(torch.equal(back, first), "phase 12b: logits back on one "
+                                        "device differ from the first")
+        check([r.mesh_change for r in reps] == [True, False, True]
+              and [(r.old_mesh, r.new_mesh) for r in reps[::2]]
+              == [(None, SHARD_MESH), (SHARD_MESH, None)],
+              f"phase 12b: mesh transitions "
+              f"{[(r.old_mesh, r.new_mesh) for r in reps]}")
+        check(len(reshards) == 2 and all(r.moved_bytes == 0
+                                         for r in reshards),
+              f"phase 12b: reshards {reshards}: a built pipeline's "
+              f"transition must move no weight bytes")
+        for r, rs in zip((reps[0], reps[2]), reshards):
+            check(r.t_reshard == rs.t_wall and r.t_reshard >= 0.0,
+                  f"phase 12b: {r.strategy}'s t_reshard {r.t_reshard} is "
+                  f"not its ReshardReport's {rs.t_wall}")
+        profile = profile_transformer(cfg, seq=PROMPT)
+        alpha_beta = calibrate_mesh(profile, timings, split=split,
+                                    mesh_shape=SHARD_MESH)
+        for r in reps:
+            print(f"[shard] stateless {r.strategy}: split {r.old_split} -> "
+                  f"{r.new_split}, mesh {r.old_mesh} -> {r.new_mesh}, "
+                  f"downtime {r.downtime:.6f} s, t_reshard "
+                  f"{r.t_reshard:.6f} s")
+        print(f"[shard] stateless: reshards {reshards}; max |logit diff| "
+              f"on the mesh {mesh_diffs} (max |logit| {scale:.3e}); request "
+              f"wall (edge + cloud, unscaled) ms {request_ms}; all-reduces a "
+              f"request {ar_request}; calibrate_mesh scales (alpha, beta) "
+              f"{alpha_beta} on {mapping}: fitted to walls with no link "
+              f"between the shards, not a tensor-parallel speed")
+        del runner, first, on_mesh, back
+        free_memory()
+
+        # --- 12c: the stateful pipeline -------------------------------
+        gclog.label = "qwen2.5-3b phase 12c"
+        kw = dict(split=split, net=NetworkModel(20.0), prompt_len=PROMPT,
+                  max_seq=MAX_SEQ, seed=seed, decode_impl="auto",
+                  attn_impl="kernel", device="cuda")
+        mgr, session = make_stateful_manager(cfg, params, **kw)
+        per_step = {False: expected(K, cfg, 0, L, "decode")}
+        mesh_step = expected(K, cfg, 0, split, "decode")
+        for name, n in scaled(expected(K, cfg, split, L, "decode"),
+                              tp).items():
+            mesh_step[name] += n
+        per_step[True] = mesh_step
+        logits_seen, step_ms = [], {"one device": [], "mesh": []}
+
+        def steps(n: int, mesh: bool):
+            for _ in range(n):
+                before = K.read()
+                logits, timing = mgr.serve(None)
+                got = K.since(before)
+                check(got == per_step[mesh], f"phase 12c: a decode step "
+                      f"(mesh {mesh}) launched {got}, want {per_step[mesh]}")
+                step_ms["mesh" if mesh else "one device"].append(
+                    (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
+                    * 1e3)
+                logits_seen.append(logits.float().cpu())
+
+        def state_bytes():
+            a = mgr.active
+            return sum(v.numel() * v.element_size() for v in
+                       session.subset(a._u_edge, a._u_all).values())
+
+        steps(SHARD_STEPS, False)
+        live = state_bytes()
+        mgr.set_mesh_shape(SHARD_MESH)
+        r1 = mgr.repartition("switch_b2", split)
+        moved1 = mgr.pool.reshards[-1].moved_bytes
+        ar0 = TP.all_reduce.calls
+        steps(SHARD_STEPS, True)
+        ar_step = (TP.all_reduce.calls - ar0) // SHARD_STEPS
+        _, prof_step_mesh = profile_step(
+            lambda: mgr.serve(None)[0], request_bound_ms(cfg, params, 1),
+            device_kernels(cfg))            # a step not in logits_seen
+        live_mesh = state_bytes()
+        mgr.set_mesh_shape(None)
+        r2 = mgr.repartition("switch_b2", split)
+        moved2 = mgr.pool.reshards[-1].moved_bytes
+        steps(SHARD_STEPS, False)
+        tokens = session.tokens.clone()
+        stateful_reshards = list(mgr.pool.reshards)
+        shut(mgr)
+        launches = K.read()       # the main path's; not the twin's below
+        check(r1.mesh_change and r1.new_mesh == SHARD_MESH
+              and r2.mesh_change and r2.old_mesh == SHARD_MESH
+              and r2.new_mesh is None,
+              f"phase 12c: transitions {(r1.old_mesh, r1.new_mesh)}, "
+              f"{(r2.old_mesh, r2.new_mesh)}")
+        check(moved1 == live and moved2 == live_mesh == live,
+              f"phase 12c: reshards moved {moved1} and {moved2} B, the "
+              f"live cloud-range state is {live} B")
+        # an unswitched session fed the same tokens; its step at the
+        # profiled mesh step's place is profiled too, and not compared
+        ref, _ = make_stateful_manager(cfg, params, **kw)
+        wants = []
+        for i in range(len(logits_seen) + 1):
+            feed = {"token": tokens[:, PROMPT + i:PROMPT + 1 + i]}
+            if i == 2 * SHARD_STEPS:
+                _, prof_step_one = profile_step(
+                    lambda: ref.serve(feed)[0],
+                    request_bound_ms(cfg, params, 1), device_kernels(cfg))
+            else:
+                wants.append(ref.serve(feed)[0].float().cpu())
+        shut(ref)
+        diffs = [max_diff(a, b) for a, b in zip(logits_seen, wants)]
+        agree = sum(int(a.argmax() == b.argmax())
+                    for a, b in zip(logits_seen, wants))
+        scale = max(w.abs().max().item() for w in wants)
+        check(max(diffs) <= LOGIT_RTOL * scale,
+              f"phase 12c: logits differ from the unswitched session's by "
+              f"{max(diffs)} (> {LOGIT_RTOL} of {scale})")
+        check(all(bool(torch.isfinite(x).all()) for x in logits_seen),
+              "phase 12c: non-finite logits")
+        peak = torch.cuda.max_memory_allocated()
+        devs = [torch.device(x) for x in mapping]
+        ar = {"step_calls": ar_step, "request_calls": ar_request,
+              "step_ms": all_reduce_ms((1, 1, cfg.d_model), devs, ar_step),
+              "request_ms": all_reduce_ms((1, PROMPT, cfg.d_model), devs,
+                                          ar_request)}
+        t_reshard_build = reps[0].build_detail.t_reshard
+        med = {k: sorted(v)[len(v) // 2] for k, v in step_ms.items()}
+        print(f"[shard] stateful: switch_b2 onto {SHARD_MESH} moved "
+              f"{moved1} B in {r1.t_reshard:.6f} s, back moved {moved2} B "
+              f"in {r2.t_reshard:.6f} s (live cloud-range state {live} B); "
+              f"token agreement with the unswitched session {agree} of "
+              f"{len(diffs)}; max |logit diff| {max(diffs):.3e} (max |logit| "
+              f"{scale:.3e}); decode step wall (edge + cloud, unscaled) "
+              f"median ms {med}; all-reduces {ar}; peak device memory "
+              f"{peak} B; the stateless switch_b2's BuildReport.t_reshard "
+              f"{t_reshard_build:.6f} s")
+        print(f"[shard] profiled decode step on the mesh: {prof_step_mesh}; "
+              f"on one device: {prof_step_one}; profiled request on the "
+              f"mesh: {prof_mesh}")
+    finally:
+        reset_mesh_devices()
+    free_memory()
+    wall = time.perf_counter() - t0
+    print(f"[shard] phase 12 took {wall:.1f} s")
+    return {"mapping": mapping, "mesh": list(SHARD_MESH), "kernels": kern,
+            "launches": launches, "wall_s": wall,
+            "stateless": {"request_ms": request_ms,
+                          "logit_diff": mesh_diffs,
+                          "downtime_s": [(r.strategy, r.downtime)
+                                         for r in reps],
+                          "reshards": [vars(r) for r in reshards],
+                          "calibrate_mesh": list(alpha_beta),
+                          "build_t_reshard_s": t_reshard_build,
+                          "profiled_request_mesh": prof_mesh},
+            "stateful": {"step_ms": step_ms, "step_ms_median": med,
+                         "moved_bytes": [moved1, moved2],
+                         "live_state_bytes": live,
+                         "t_reshard_s": [r1.t_reshard, r2.t_reshard],
+                         "reshards": [vars(r) for r in stateful_reshards],
+                         "token_agreement": [agree, len(diffs)],
+                         "max_logit_diff": max(diffs),
+                         "profiled_step_mesh": prof_step_mesh,
+                         "profiled_step_one_device": prof_step_one},
+            "all_reduce": ar, "peak_device_bytes": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -3498,8 +3851,8 @@ def main() -> None:
                 "flash_attention": FA.flash_attention,
                 "mamba1_scan": MS.mamba1_scan, "ssd_scan": SD.ssd_scan})
 
-    # phases 4-6: each model's stateful and stateless paths; phase 7,
-    # qwen2.5-3b's serving stream
+    # phases 4-6: each model's stateful and stateless paths; phases 7
+    # and 12, qwen2.5-3b's serving stream and its sharded cloud stage
     models = [run_model(K, arch, args.seed, gclog) for arch in MODELS]
     # phase 8: the paper's own CNNs at 224 px
     cnns = [phase_cnn(K, arch, args.seed, gclog) for arch in CNN_ARCHS]
@@ -3512,7 +3865,8 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     paths = [(f"{m['arch']} {path}", m[path]["launches"])
              for m in models + [whisper]
-             for path in ("stateful", "stateless", "serving", "standalone")
+             for path in ("stateful", "stateless", "serving", "standalone",
+                          "sharding")
              if path in m]
     paths.append((f"{WINDOW_ARCH} window", window["launches"]))
     for name, row in rows.items():
@@ -3521,7 +3875,7 @@ def main() -> None:
         row["launches_by_path"] = by_path
         check(row["launches"] > 0, f"{name} never launched on a main path")
 
-    # phase 12: report
+    # phase 13: report
     wall = time.perf_counter() - t_start
     print(f"[done] the whole script took {wall:.1f} s; garbage "
           f"collections {gclog.summary()}; flash_decode device-time traces "

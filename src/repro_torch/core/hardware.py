@@ -37,6 +37,11 @@ H100_F32_FLOPS = 67e12
 H100_SMS = 132
 H100_MAX_SM_CLOCK_HZ = 1.98e9
 H100_EXP_RATE = 16 * H100_SMS * H100_MAX_SM_CLOCK_HZ     # exps/s
+# its NVLink 4: 18 links of 25 GB/s each way, 450 GB/s per direction (the
+# data sheet's 900 GB/s counts both); the per-mesh latency model prices
+# the tensor-parallel all-reduces with it.  The reference's ICI_LINK_BW is
+# a TPU figure and does not carry over.
+NVLINK_BW = 450e9           # bytes/s per direction
 
 # paper testbed analogue: edge is ~4x weaker than cloud (4 vs 8 cores,
 # and the paper's edge VM has half the RAM); exact ratio only shifts the

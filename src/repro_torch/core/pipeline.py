@@ -1,13 +1,18 @@
 """EdgeCloudPipeline: two built stages joined by a priced network link.
 
-The counterpart of ``repro/core/pipeline.py`` without a cloud mesh (the
-sharded slice brings ``mesh_shape``; asking for one raises).  ``process``
+The counterpart of ``repro/core/pipeline.py``.  ``process``
 runs stage-edge (measured wall-clock, synchronised, scaled by the
 cloud/edge speed ratio), prices the boundary transfer with the current
 ``NetworkModel`` (virtual time: there is no real link), and runs
 stage-cloud (measured wall-clock, synchronised).  ``RequestTiming`` is
 Eq. 1 for one request; ``BuildReport`` splits a build into its parts.  The
 stateful decode pipeline lives in ``repro_torch.core.stateful``.
+
+``mesh_shape`` makes the CLOUD stage tensor-parallel
+(``repro_torch.distributed.tp`` over ``launch.mesh.make_cloud_mesh``):
+the whole weight tree is copied onto the mesh at build time (what
+``BuildReport.t_reshard`` times), so a prebuilt standby moves no weights
+on the stream.  The edge stage stays on one device.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ class BuildReport:
 
 
 class EdgeCloudPipeline:
-    """One edge-cloud pipeline at a fixed split point.
+    """One edge-cloud pipeline at a fixed split point, its cloud stage on
+    one device or, with ``mesh_shape``, on a tensor-parallel mesh.
 
     The two stages are built one after the other: both run on one card
     and are dispatched by one Python thread, so overlapping their warm-up
@@ -61,15 +67,23 @@ class EdgeCloudPipeline:
                  *, edge_scale: float = CLOUD_SPEC.flops / EDGE_SPEC.flops,
                  owns_weights: bool = False,
                  mesh_shape: Optional[tuple] = None):
-        if mesh_shape is not None:
-            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
-                                      "is not ported yet")
+        self.mesh_shape = tuple(int(d) for d in mesh_shape) \
+            if mesh_shape else None
+        if self.mesh_shape is not None:
+            from repro_torch.distributed.tp import check_family
+            if not isinstance(runner, StageRunner):
+                raise NotImplementedError(f"no sharded cloud stage for "
+                                          f"{type(runner).__name__}")
+            check_family(runner.cfg)
         self.runner = runner
         self.split = split
         self.net = net
         self.edge_scale = edge_scale     # edge is this much slower than host
         self.owns_weights = owns_weights  # True => separate weight buffers (2x mem)
         self.params = runner.params
+        # the cloud stage's weights: ``params``, or their copy on the mesh
+        self.cloud_params = runner.params
+        self.mesh = None
         self.edge_fn = None
         self.cloud_fn = None
 
@@ -109,11 +123,39 @@ class EdgeCloudPipeline:
                                           fresh=cold)
         rep.t_compile_edge = sw.restart()
         mid = r.stage_out_avals(0, lo_c, self.params, sample)
-        self.cloud_fn = r.stage_executable(lo_c, hi_c, self.params, mid,
-                                           fresh=cold)
-        rep.t_compile_cloud = sw.elapsed()
+        if self.mesh_shape is None:
+            self.cloud_params = self.params
+            self.cloud_fn = r.stage_executable(lo_c, hi_c, self.params, mid,
+                                               fresh=cold)
+        else:
+            from repro_torch.launch.mesh import make_cloud_mesh
+            self.mesh = make_cloud_mesh(self.mesh_shape)
+            # the cloud container's weight copy lives ON the mesh; placing
+            # it at build time is what lets a prebuilt standby pay the
+            # reshard off the stream
+            swr = Stopwatch()
+            self.cloud_params = r.place_on_mesh(self.params, self.mesh)
+            self._sync()
+            rep.t_reshard = swr.elapsed()
+            self.cloud_fn = r.stage_executable(
+                lo_c, hi_c, self.cloud_params, mid, fresh=cold,
+                mesh=self.mesh)
+        rep.t_compile_cloud = sw.elapsed() - rep.t_reshard
         rep.t_wall = rep.t_weights + sw_wall.elapsed()
         return rep
+
+    def reshard(self) -> int:
+        """``PipelinePool.activate``'s mesh-transition hook; returns the
+        logical bytes moved on the stream.  A built pipeline placed its
+        weight copy at build time and a stateless stage holds no state,
+        so nothing moves."""
+        return 0
+
+    def _sync(self) -> None:
+        synchronize(self.runner.device)
+        if self.mesh is not None:
+            from repro_torch.distributed.tp import synchronize_mesh
+            synchronize_mesh(self.mesh)
 
     def warm(self, sample_inputs) -> RequestTiming:
         """One throwaway forward: the "always-running" warm-up."""
@@ -128,7 +170,7 @@ class EdgeCloudPipeline:
         """Drop the built stages and weight references (pool eviction)."""
         self.edge_fn = None
         self.cloud_fn = None
-        self.params = None
+        self.params = self.cloud_params = self.mesh = None
 
     # -- serve ------------------------------------------------------------
     def process(self, inputs, *, batch: int = 1, seq: Optional[int] = None
@@ -145,11 +187,19 @@ class EdgeCloudPipeline:
         bbytes = self.runner.boundary_bytes(self.split, batch, seq)
         t_transfer = self.net.transfer_time(bbytes)
         sw = Stopwatch()
-        out = self.cloud_fn(self.params, h)
-        synchronize(dev)
+        out = self.cloud_fn(self.cloud_params, h)
+        self._sync()
         t_cloud = sw.elapsed()
-        return out["logits"], RequestTiming(t_edge, t_transfer, t_cloud)
+        return out["logits"].to(dev), \
+            RequestTiming(t_edge, t_transfer, t_cloud)
 
     # -- memory accounting (Table I) --------------------------------------
     def live_param_bytes(self) -> int:
-        return param_bytes(self.params) if self.ready else 0
+        """The weights' bytes, and a mesh build's copy at its logical size
+        (per shard it holds about 1/tp of that), as the reference counts."""
+        if not self.ready:
+            return 0
+        n = param_bytes(self.params)
+        if self.mesh is not None:
+            n += self.cloud_params.logical_bytes
+        return n

@@ -1,10 +1,11 @@
 """PipelinePool: the shared substrate all switching strategies operate on.
 
-The port's copy of ``repro/core/pool.py``, with one part left for its
-slice: a cloud ``mesh_shape`` (sharded slice) raises
-``NotImplementedError``, so the reshard-on-activation hook is not here.  A
-``fault_plan`` (``core/faults.py``) is consulted before every build, as in
-the reference.  The base pool builds stateless ``EdgeCloudPipeline``s;
+The port's copy of ``repro/core/pool.py``.  A key's ``mesh_shape`` puts
+its pipeline's cloud stage on a tensor-parallel mesh
+(``repro_torch.distributed.tp``), and an activation that changes the mesh
+shape reshards on the stream (``ReshardReport``).  A ``fault_plan``
+(``core/faults.py``) is consulted before every build, as in the
+reference.  The base pool builds stateless ``EdgeCloudPipeline``s;
 ``StatefulPipelinePool`` overrides ``_new_pipeline`` with its decode
 pipelines.
 
@@ -96,8 +97,8 @@ class PipelineKey:
 
     def __post_init__(self):
         if self.mesh_shape is not None:
-            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
-                                      "is not ported yet")
+            object.__setattr__(self, "mesh_shape",
+                               tuple(int(d) for d in self.mesh_shape))
 
     @classmethod
     def of(cls, key) -> "PipelineKey":
@@ -127,6 +128,22 @@ class SwitchAborted(RuntimeError):
 
 class SwitchAbortedWarning(UserWarning):
     """A switch was timed out by the watchdog and rolled back."""
+
+
+@dataclass
+class ReshardReport:
+    """One mesh-shape transition executed at activation time.
+
+    ``t_wall`` is measured ON THE STREAM (inside ``activate``, under the
+    same lock the pointer swap takes): it is downtime, and the switch
+    owner folds it into ``SwitchReport.t_reshard``.  ``moved_bytes`` is
+    the logical size of the buffers that actually changed placement (0
+    weight bytes for a prebuilt standby, whose weights were placed at
+    build time)."""
+    old_mesh: Optional[Tuple[int, ...]]
+    new_mesh: Optional[Tuple[int, ...]]
+    t_wall: float = 0.0
+    moved_bytes: int = 0
 
 
 @dataclass
@@ -162,7 +179,7 @@ class PoolEntry:
             "_standby_handle", "_executor", "_clock",
             "_aborted_switch_threads", "_pause_epoch",
             "active_key", "standby_key", "_paused_key", "mesh_shape",
-            rank=RANK_POOL)
+            "last_reshard", "reshards", rank=RANK_POOL)
 class PipelinePool:
     """Owns N built pipelines plus the checkpoint Pause-and-Resume reloads."""
 
@@ -175,9 +192,6 @@ class PipelinePool:
                  executor: Optional[BuildExecutor] = None,
                  fault_plan=None,
                  mesh_shape: Optional[Tuple[int, ...]] = None):
-        if mesh_shape is not None:
-            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
-                                      "is not ported yet")
         self.runner = runner
         # chaos valve (repro_torch.core.faults.FaultPlan or None): consulted
         # before every pipeline build; unguarded — armed/swap is a
@@ -194,9 +208,12 @@ class PipelinePool:
         # default off to keep unit-test pools cheap)
         self.warm_standbys = warm_standbys
         self.max_entries = max_entries
-        # the cloud-mesh shape NEW builds target: always None (one device)
-        # until the sharded slice is ported
-        self.mesh_shape = None
+        # the cloud-mesh shape NEW builds target (None = single-device).
+        # A mesh-shape-changing repartition is: set_mesh_shape(new), then
+        # run any registered strategy: its builds key on the new shape
+        # and activation reshards weights + decode state on the stream.
+        self.mesh_shape = (tuple(int(d) for d in mesh_shape)
+                           if mesh_shape is not None else None)
         self._entries: Dict[PipelineKey, PoolEntry] = {}
         self._clock = 0
         self.active_key: Optional[PipelineKey] = None
@@ -210,6 +227,8 @@ class PipelinePool:
         self._build_failures: List[Tuple[PipelineKey, BaseException]] = []
         self._aborted_switch_threads: Set[threading.Thread] = set()
         self._pause_epoch = 0       # bumped by every pause(): "went dark"
+        self.last_reshard: Optional[ReshardReport] = None
+        self.reshards: List[ReshardReport] = []
 
     @property
     def checkpoint_path(self) -> str:
@@ -257,12 +276,11 @@ class PipelinePool:
 
     def set_mesh_shape(self, mesh_shape: Optional[Tuple[int, ...]]) -> None:
         """Retarget NEW builds to a different cloud mesh (device gained or
-        lost).  Only ``None`` (one device) is ported."""
-        if mesh_shape is not None:
-            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
-                                      "is not ported yet")
+        lost).  Existing entries keep their shapes; the next repartition's
+        activation performs the measured reshard."""
         with self._lock:
-            self.mesh_shape = None
+            self.mesh_shape = (tuple(int(d) for d in mesh_shape)
+                               if mesh_shape is not None else None)
 
     # -- bookkeeping -------------------------------------------------------
     def __contains__(self, key) -> bool:
@@ -583,21 +601,50 @@ class PipelinePool:
         Atomic w.r.t. in-flight admission: the swap happens under the same
         lock ``snapshot_active`` reads under, so the serving engine either
         admits against the old pipeline (and drains on it) or against the
-        new one — never a torn state.  (Stateful pools hand the decode
-        state across the moved split in their override.)"""
+        new one — never a torn state.
+
+        When the incoming entry's ``mesh_shape`` differs from the outgoing
+        active's (a repartition that also gained/lost cloud devices), the
+        mesh transition is executed here: ``pipeline.reshard()`` places
+        whatever is not already on the target placement, measured on the
+        stream and recorded as ``last_reshard`` for the switch owner to
+        stamp onto its ``SwitchReport``.  (Stateful pools hand the decode
+        state across the moved split first, in their override, and their
+        pipelines' ``reshard`` moves the live decode state too.)"""
         key = self._coerce_key(key)
         with self._lock:
             self._check_fence()
             entry = self._entries[key]
             assert entry.pipeline.ready, f"pipeline {key} not built"
+            old_key = self.active_key if self.active_key is not None \
+                else self._paused_key
             sw = timing.Stopwatch()
+            reshard = None
+            if old_key is not None and old_key.mesh_shape != key.mesh_shape:
+                rsw = timing.Stopwatch()
+                moved = entry.pipeline.reshard()
+                reshard = ReshardReport(old_mesh=old_key.mesh_shape,
+                                        new_mesh=key.mesh_shape,
+                                        t_wall=rsw.elapsed(),
+                                        moved_bytes=moved)
             self.active_key = key
             self._paused_key = None
             t_switch = sw.elapsed()
             if self.standby_key == key:
                 self.standby_key = None
+            if reshard is not None:
+                self.last_reshard = reshard
+                self.reshards.append(reshard)
             self._touch(entry)
         return t_switch
+
+    def take_last_reshard(self) -> Optional[ReshardReport]:
+        """Pop the reshard executed by the most recent activation (None if
+        the last switch kept the mesh shape): the same single-consumer
+        contract as the stateful pool's ``take_last_handoff``."""
+        with self._lock:
+            reshard, self.last_reshard = self.last_reshard, None
+            return reshard
 
     def try_activate(self, key) -> Optional[float]:
         """``activate`` that returns None instead of raising when the key
@@ -615,8 +662,9 @@ class PipelinePool:
         with self._lock:
             self._check_fence()
             old, self.active_key = self.active_key, None
-            # remember what WAS serving: the stateful resume-side
-            # activation hands state off from it across the dark window
+            # remember what WAS serving: the resume-side activation hands
+            # state off from it and detects a mesh-shape change across the
+            # dark window
             if old is not None:
                 self._paused_key = old
             self._pause_epoch += 1

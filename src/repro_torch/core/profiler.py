@@ -4,19 +4,21 @@ The counterpart of ``repro/core/profiler.py``: the measured CNN profile
 (``profile_cnn``: each unit timed on its device, synchronised), FLOPs/spec
 estimation (``profile_transformer``) — the paper's "estimation-based"
 path [18] — and the rescaling of that profile to MEASURED decode walls
-(``calibrate_decode``).  The per-mesh calibration (``calibrate_mesh``)
-arrives with the sharded slice, and with it the per-mesh latency model.
+(``calibrate_decode``), and the per-mesh latency model of a
+tensor-parallel cloud stage with its calibration to measured walls
+(``calibrate_mesh``), its collectives priced on the H100's NVLink.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, CNNConfig
-from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC, DeviceSpec
+from repro_torch.core.hardware import (CLOUD_SPEC, EDGE_SPEC, NVLINK_BW,
+                                      DeviceSpec)
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.stages import tree_leaves
 from repro_torch.core.timing import Stopwatch
@@ -44,6 +46,12 @@ class ModelProfile:
     # bumped by invalidate_cache(); downstream memos (e.g. switch_pool's
     # optimal_split cache) key on (profile, version, len(units))
     _version: int = field(default=0, init=False, repr=False, compare=False)
+    # per-mesh latency model: mesh_shape -> (alpha, beta) scales on the
+    # analytic terms (``mesh_cloud_time``); an absent shape is (1.0, 1.0).
+    # Filled by ``calibrate_mesh`` from measured sharded-cloud walls.
+    mesh_models: Dict[Tuple[int, ...], Tuple[float, float]] = \
+        field(default_factory=dict, repr=False, compare=False)
+
     def num_splits(self) -> int:
         return len(self.units) - 1  # split after unit i, i in [0, n-2]
 
@@ -68,17 +76,47 @@ class ModelProfile:
         self._psum = None
         self._version += 1
 
+    @staticmethod
+    def mesh_tp(mesh_shape) -> int:
+        """Tensor-parallel degree of a cloud mesh shape (last axis; a
+        leading data axis cannot help a batch-of-1 serving stream)."""
+        return int(mesh_shape[-1]) if mesh_shape else 1
+
+    def mesh_model(self, mesh_shape) -> Tuple[float, float]:
+        """Calibration scales ``(alpha, beta)`` for a mesh shape: alpha
+        multiplies the 1/tp compute term, beta the ring-collective term."""
+        if mesh_shape is None:
+            return (1.0, 1.0)
+        return self.mesh_models.get(tuple(mesh_shape), (1.0, 1.0))
+
+    def mesh_cloud_time(self, t_cloud: float, coll_bytes: float,
+                        mesh_shape) -> float:
+        """Per-mesh cloud-stage time.  The uncalibrated default:
+
+            t = alpha * t_cloud / tp                       (compute, 1/tp)
+              + beta * 2(tp-1)/tp * coll_bytes / NVLINK_BW (ring all-reduce)
+
+        ``coll_bytes`` is the summed per-unit activation volume of the
+        cloud range (each tensor-parallel layer all-reduces its
+        residual-stream partials)."""
+        tp = self.mesh_tp(mesh_shape)
+        if tp <= 1:
+            return t_cloud
+        alpha, beta = self.mesh_model(mesh_shape)
+        t_coll = 2.0 * (tp - 1) / tp * float(coll_bytes) / NVLINK_BW
+        return alpha * t_cloud / tp + beta * t_coll
+
     def latency(self, split: int, net: NetworkModel, mesh_shape=None):
         """(T_e, T_t, T_c) for a split after unit `split` (Eq. 1).
 
-        ``mesh_shape`` (a tensor-parallel cloud stage) is not ported yet
-        and raises; ``None`` is a cloud stage on one device."""
-        if mesh_shape is not None:
-            raise NotImplementedError("a sharded cloud stage (mesh_shape) "
-                                      "is not ported yet")
-        n, pe, pc, _ = self._prefix()
+        ``mesh_shape`` prices the CLOUD side on a tensor-parallel mesh of
+        that shape via the per-mesh latency model (``mesh_cloud_time``)."""
+        n, pe, pc, pb = self._prefix()
         t_e = float(pe[split])
         t_c = float(pc[n - 1] - pc[split])
+        if mesh_shape is not None:
+            coll = float(pb[n - 1] - pb[split])
+            t_c = self.mesh_cloud_time(t_c, coll, mesh_shape)
         t_t = net.transfer_time(self.units[split].boundary_bytes)
         return t_e, t_t, t_c
 
@@ -240,3 +278,28 @@ def calibrate_decode(profile: ModelProfile, timings: Sequence, *,
         u.t_cloud *= scale_c
     profile.invalidate_cache()
     return scale_e, scale_c
+
+
+def calibrate_mesh(profile: ModelProfile, timings: Sequence, *, split: int,
+                   mesh_shape) -> Tuple[float, float]:
+    """Fit the per-mesh latency model to MEASURED sharded-cloud walls
+    (objects with a ``t_cloud``) of a pipeline whose cloud stage ran on a
+    mesh of ``mesh_shape`` at ``split``.  One measurement point fits one
+    scale: alpha and beta move together by measured/predicted, keeping
+    the analytic compute/collective ratio.  Stores the scales on
+    ``profile.mesh_models`` and bumps the cache version."""
+    if mesh_shape is None or ModelProfile.mesh_tp(mesh_shape) <= 1:
+        return (1.0, 1.0)
+    mesh_shape = tuple(int(d) for d in mesh_shape)
+    t_cloud = float(np.median(np.asarray([t.t_cloud for t in timings],
+                                         np.float64)))
+    n, pe, pc, pb = profile._prefix()
+    base_c = float(pc[n - 1] - pc[split])
+    coll = float(pb[n - 1] - pb[split])
+    # predict with the CURRENT scales, then apply the correction ratio
+    pred = profile.mesh_cloud_time(base_c, coll, mesh_shape)
+    scale = t_cloud / pred if pred > 0 and t_cloud > 0 else 1.0
+    alpha, beta = profile.mesh_model(mesh_shape)
+    profile.mesh_models[mesh_shape] = (alpha * scale, beta * scale)
+    profile.invalidate_cache()
+    return profile.mesh_models[mesh_shape]

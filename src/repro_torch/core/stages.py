@@ -21,6 +21,12 @@ returns it; ``fresh=True`` builds anew, warms up, and caches nothing (the
 paper's "new container").  An eager callable serves any input shape, so
 the reference's retrace fallback for unseen shapes has no counterpart.
 
+A sharded cloud stage (``stage_executable(..., mesh=)``) runs the unit
+range on the tensor-parallel executor (``repro_torch.distributed.tp``)
+over weights placed on the mesh (``StageRunner.place_on_mesh``); the
+mesh's identity (axis names, shape, devices) enters the cache key, so a
+sharded and a single-device callable for one range never collide.
+
 ``CnnStageRunner`` runs the paper's own CNNs (``models/cnn.py``) behind
 the same interface: unit i is a conv, pool, block, flatten or dense
 layer; ``{"image"}`` goes in, NHWC ``{"h"}`` crosses each boundary and
@@ -121,7 +127,8 @@ def to_device(tree, device: torch.device):
             init_methods=("_init_stage_cache",))
 class _BuiltStageCache:
     """Built stages shared by both runners: a subclass gives ``device``
-    and ``_run(params, state, lo, hi)``."""
+    and ``_run(params, state, lo, hi)``, and ``_run_on_mesh`` with the
+    same signature where its stages run on a mesh (``StageRunner``)."""
 
     def _init_stage_cache(self) -> None:
         self._stage_cache: Dict[Tuple, Any] = {}
@@ -131,25 +138,39 @@ class _BuiltStageCache:
         return self._run(self.params, state, lo, hi)
 
     def stage_executable(self, lo: int, hi: int, params, state, *,
-                         fresh: bool = False):
+                         fresh: bool = False, mesh=None):
         """Built callable ``fn(params, state)`` for units [lo, hi), for a
         ``state`` shaped like ``state`` (tensors or ``TensorSpec``s; never
         read, only their shapes).  A miss (or ``fresh=True``) makes the
         callable and runs one synchronised warm-up forward on scratch state
         shaped like ``state``; only a warm (``fresh=False``) build is
-        cached, per ``(lo, hi, fingerprint)``."""
+        cached, per ``(lo, hi, mesh identity, fingerprint)``.
+
+        With ``mesh`` (a ``launch.mesh.CloudMesh``) the callable runs the
+        range on the tensor-parallel executor and ``params`` are weights
+        placed on that mesh (``place_on_mesh``); the boundary goes in
+        replicated, as ``stage_shardings`` has it.  The reference's
+        ``shardings`` argument has no counterpart: the executor's layout
+        (``distributed/tp.py``) places the weights."""
         specs = abstractify(state)
-        key = (lo, hi) + aval_fingerprint(specs)
+        mesh_key = None if mesh is None else mesh.key()
+        key = (lo, hi, mesh_key) + aval_fingerprint(specs)
         if not fresh:
             with self._cache_lock:
                 hit = self._stage_cache.get(key)
             if hit is not None:
                 return hit
-
-        def fn(params, state):
-            return self._run(params, state, lo, hi)
+        if mesh is None:
+            def fn(params, state):
+                return self._run(params, state, lo, hi)
+        else:
+            def fn(params, state):
+                return self._run_on_mesh(params, state, lo, hi)
         fn(params, materialize(specs))           # warm-up on scratch state
         synchronize(self.device)
+        if mesh is not None:
+            from repro_torch.distributed.tp import synchronize_mesh
+            synchronize_mesh(mesh)
         if not fresh:
             with self._cache_lock:
                 fn = self._stage_cache.setdefault(key, fn)
@@ -239,6 +260,29 @@ class StageRunner(_BuiltStageCache):
         for i in range(lo, hi):
             state = self._apply_unit(params, state, i)
         return state
+
+    # -- sharded (tensor-parallel) cloud stage ---------------------------
+    def stage_shardings(self, mesh, state):
+        """``(param_shardings, state_shardings)`` for a stage over
+        ``mesh``: parameters follow ``distributed.sharding.param_shardings``
+        (heads / d_ff / experts / vocab -> the "model" axis) and the
+        boundary activation is REPLICATED: the edge ships one hidden state
+        and every tensor-parallel shard consumes it whole."""
+        from repro_torch.distributed.sharding import P, param_shardings
+        psh = param_shardings(self.cfg, mesh, abstractify(self.params),
+                              shard_fsdp=False)
+        return psh, tree_map(lambda _: P(), abstractify(state))
+
+    def place_on_mesh(self, params, mesh):
+        """``params`` copied onto ``mesh`` in the executor's layout
+        (``distributed.tp.place_params``)."""
+        from repro_torch.distributed import tp as TP
+        return TP.place_params(self.cfg, params, mesh)
+
+    def _run_on_mesh(self, params, state, lo: int, hi: int):
+        from repro_torch.distributed import tp as TP
+        return TP.run_units(self.cfg, params, state, lo, hi,
+                            impl=self.attn_impl, num_units=self.num_units)
 
     # -- built stages ----------------------------------------------------
     def stage_out_avals(self, lo: int, hi: int, params, state):

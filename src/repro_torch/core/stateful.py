@@ -60,6 +60,15 @@ Where the port differs from the reference, and why:
   page-locked memory: an export's buffer is that memory itself, read-only
   (``HostBuffer``), and an import copies it to the card in one DMA
   (``_from_payload``); nothing is copied into fresh pageable pages.
+* **A sharded cloud stage** (``mesh_shape``; the ``dense`` and ``vlm``
+  families) runs on the tensor-parallel executor
+  (``repro_torch.distributed.tp``), its weights copied onto the mesh at
+  build.  The session then holds the cloud range's KV entries per shard
+  (``tp.ShardedTensor``); a transfer export gathers them to whole tensors
+  first, so the payload is the reference's.  Hand-offs run on the
+  session's device (the recompute in its ``RecomputeArena``) and write
+  whole tensors, which the next step places on the mesh; a mesh-changing
+  activation moves the live cloud-range state itself (``reshard``).
 """
 from __future__ import annotations
 
@@ -88,6 +97,7 @@ from repro_torch.core.stages import (TensorSpec, abstractify,
 from repro_torch.core.state_handoff import HandoffPlan, plan_handoff
 from repro_torch.core.timing import Stopwatch
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import tp as TP
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
@@ -293,6 +303,13 @@ def _fit_kv(a, cap: int):
     elif S < cap:
         a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, cap - S))
     return a.transpose(1, 2).contiguous()
+
+
+def _state_specs(state: Dict[str, Any], device) -> Dict[str, TensorSpec]:
+    """Whole-entry specs of state entries on ``device`` (an entry placed
+    on a mesh is described by its whole shape)."""
+    return {k: TensorSpec(tuple(v.shape), v.dtype, device)
+            for k, v in state.items()}
 
 
 def _as_tokens(tokens, device) -> torch.Tensor:
@@ -674,9 +691,25 @@ class StatefulStageRunner:
             return (x[:, -1] @ T.lm_head_weights(cfg, params)).float()
         return fn
 
+    # -- on a mesh (the tensor-parallel executor) --------------------------
+    def _make_tp_decode_fn(self, u0: int, u1: int):
+        layers = [idx for _, idx in self.units[u0:u1]]
+
+        def fn(tpp, x, cache, pos):
+            return TP.decode_units(self.cfg, tpp, layers, x, cache, pos,
+                                   self._attend)
+        return fn
+
+    def _make_tp_head_fn(self):
+        def fn(tpp, xs):
+            if isinstance(xs, torch.Tensor):
+                xs = TP.replicate(xs, tpp.devices)
+            return TP.head(self.cfg, tpp, xs, last=True)
+        return fn
+
     # -- built stages ------------------------------------------------------
     def executable(self, mode: str, u0: int, u1: int, params, *args,
-                   fresh: bool = False):
+                   fresh: bool = False, mesh=None):
         """Built stage callable for a unit range, for args shaped like
         ``args`` (tensors or ``TensorSpec``s; never read, only their
         shapes).
@@ -685,12 +718,24 @@ class StatefulStageRunner:
         tokens), ``head`` (params, x).  A miss (or
         ``fresh=True``) makes the callable and runs one synchronised
         warm-up forward on scratch state shaped like ``args``; only a warm
-        (``fresh=False``) build is cached."""
-        makers = {"decode": lambda: self._make_decode_fn(u0, u1),
-                  "embed": self._make_embed_fn,
-                  "head": self._make_head_fn}
+        (``fresh=False``) build is cached, per ``(mode, range, mesh
+        identity, fingerprint)``.  With ``mesh`` the decode and head
+        callables run on the tensor-parallel executor over weights placed
+        on it (``tp.place_params``): the decode stage takes the boundary
+        hidden and position replicated and each KV entry per shard (a
+        whole entry is placed first), and returns the replicated hidden
+        the head takes.  The reference's ``shardings`` argument has no
+        counterpart: the executor's layout places weights and state."""
+        if mesh is None:
+            makers = {"decode": lambda: self._make_decode_fn(u0, u1),
+                      "embed": self._make_embed_fn,
+                      "head": self._make_head_fn}
+        else:
+            makers = {"decode": lambda: self._make_tp_decode_fn(u0, u1),
+                      "head": self._make_tp_head_fn}
         specs = abstractify(args)
-        key = (mode, u0, u1) + aval_fingerprint(specs)
+        key = (mode, u0, u1, None if mesh is None else mesh.key()) \
+            + aval_fingerprint(specs)
         if not fresh:
             with self._lock:
                 hit = self._stage_cache.get(key)
@@ -699,6 +744,8 @@ class StatefulStageRunner:
         fn = makers[mode]()
         fn(params, *materialize(specs))           # warm-up on scratch state
         synchronize(self.device)
+        if mesh is not None:
+            TP.synchronize_mesh(mesh)
         if not fresh:
             with self._lock:
                 fn = self._stage_cache.setdefault(key, fn)
@@ -946,7 +993,7 @@ class DecodeSession:
         with self._lock:
             for unit in self.runner.units[u0:u1]:
                 for k in _unit_state_keys(self.cfg, unit):
-                    t = self.cache[k]
+                    t = TP.whole(self.cache[k], self.device)
                     cap = t.numel()
                     if _is_kv(k):                # KV: valid region only
                         t = t[:, :, :self.pos]
@@ -1033,8 +1080,8 @@ class DecodeSession:
             self.cache.update(caches)
 
     def replace_state(self, entries: Dict[str, Any]) -> None:
-        """Swap state buffers wholesale — the mesh-reshard path, where the
-        values are numerically identical and only device placement moved."""
+        """Swap state buffers wholesale: the mesh-reshard path, where the
+        values are the same and only their placement moved."""
         with self._lock:
             self.cache.update(entries)
 
@@ -1095,13 +1142,29 @@ class StatefulEdgeCloudPipeline:
     one-token hidden state crossing the link is priced with the current
     ``NetworkModel``, and the cloud stage covers layers [split, L) plus
     the LM head (measured wall).  The session advances once per served
-    request."""
+    request.
+
+    ``mesh_shape`` puts the cloud stage on a tensor-parallel mesh (a
+    ``DecodeSession``'s stream of the ``dense`` or ``vlm`` family): the
+    weights are copied onto it at build (``BuildReport.t_reshard``), the
+    cloud range's decode state lives per shard, and each step replicates
+    the boundary hidden onto the mesh and brings the logits back to the
+    edge's device.  The edge stage stays on one device."""
 
     def __init__(self, runner: StatefulStageRunner, split: int,
                  net: NetworkModel, *,
                  session: Union[DecodeSession, "SessionManager"],
                  edge_scale: float = CLOUD_SPEC.flops / EDGE_SPEC.flops,
-                 owns_weights: bool = False):
+                 owns_weights: bool = False,
+                 mesh_shape: Optional[tuple] = None):
+        self.mesh_shape = tuple(int(d) for d in mesh_shape) \
+            if mesh_shape else None
+        if self.mesh_shape is not None:
+            TP.check_family(runner.cfg)
+            if not isinstance(session, DecodeSession):
+                raise NotImplementedError("a slot pool's (SessionManager) "
+                                          "cloud stage on a mesh is not "
+                                          "ported yet")
         self.runner = runner
         self.session = session
         self.split = min(max(int(split), 0), runner.num_units)
@@ -1109,6 +1172,9 @@ class StatefulEdgeCloudPipeline:
         self.edge_scale = edge_scale
         self.owns_weights = owns_weights
         self.params = runner.params
+        # the cloud stage's weights: ``params``, or their copy on the mesh
+        self.cloud_params = runner.params
+        self.mesh = None
         self._u_edge = unit_index_of_split(runner.cfg, self.split)
         self._u_all = len(runner.units)
         self.embed_fn = None
@@ -1146,15 +1212,32 @@ class StatefulEdgeCloudPipeline:
                                      fresh=cold)
         self.edge_fn = r.executable(
             "decode", 0, self._u_edge, self.params, x_spec,
-            abstractify(s.subset(0, self._u_edge)), pos_spec, fresh=cold)
-        rep.t_compile_edge = sw.restart()
-        self.cloud_fn = r.executable(
-            "decode", self._u_edge, self._u_all, self.params, x_spec,
-            abstractify(s.subset(self._u_edge, self._u_all)), pos_spec,
+            _state_specs(s.subset(0, self._u_edge), dev), pos_spec,
             fresh=cold)
-        self.head_fn = r.executable("head", 0, 0, self.params, x_spec,
-                                    fresh=cold)
-        rep.t_compile_cloud = sw.elapsed()
+        rep.t_compile_edge = sw.restart()
+        cloud_specs = _state_specs(s.subset(self._u_edge, self._u_all), dev)
+        if self.mesh_shape is None:
+            self.cloud_params = self.params
+            self.cloud_fn = r.executable(
+                "decode", self._u_edge, self._u_all, self.params, x_spec,
+                cloud_specs, pos_spec, fresh=cold)
+            self.head_fn = r.executable("head", 0, 0, self.params, x_spec,
+                                        fresh=cold)
+        else:
+            from repro_torch.launch.mesh import make_cloud_mesh
+            mesh = self.mesh = make_cloud_mesh(self.mesh_shape)
+            # the weight copy on the mesh, placed at build time so that a
+            # prebuilt standby's reshard on the stream moves state only
+            swr = Stopwatch()
+            self.cloud_params = TP.place_params(r.cfg, self.params, mesh)
+            TP.synchronize_mesh(mesh)
+            rep.t_reshard = swr.elapsed()
+            self.cloud_fn = r.executable(
+                "decode", self._u_edge, self._u_all, self.cloud_params,
+                x_spec, cloud_specs, pos_spec, fresh=cold, mesh=mesh)
+            self.head_fn = r.executable("head", 0, 0, self.cloud_params,
+                                        x_spec, fresh=cold, mesh=mesh)
+        rep.t_compile_cloud = sw.elapsed() - rep.t_reshard
         rep.t_wall = rep.t_weights + sw_wall.elapsed()
         return rep
 
@@ -1164,7 +1247,32 @@ class StatefulEdgeCloudPipeline:
 
     def close(self) -> None:
         self.embed_fn = self.edge_fn = self.cloud_fn = self.head_fn = None
-        self.params = None
+        self.params = self.cloud_params = self.mesh = None
+
+    def reshard(self) -> int:
+        """Place the live cloud-range decode state on this pipeline's
+        placement (``PipelinePool.activate``'s mesh-transition hook): onto
+        its mesh, or back to the session's device for a single-device
+        pipeline taking over from a mesh.  The weights were placed at
+        build, so only the state, which kept advancing on the old
+        placement, moves.  Returns the logical bytes moved."""
+        if not self.ready:
+            return 0
+        s = self.session
+        placed = {}
+        for k, v in s.subset(self._u_edge, self._u_all).items():
+            if self.mesh is None:
+                if isinstance(v, TP.ShardedTensor):
+                    placed[k] = v.gather(s.device)
+            else:
+                t = TP.place_entry(self.cloud_params, v)
+                if t is not v:
+                    placed[k] = t
+        synchronize(s.device)
+        if self.mesh is not None:
+            TP.synchronize_mesh(self.mesh)
+        s.replace_state(placed)
+        return sum(v.numel() * v.element_size() for v in placed.values())
 
     # -- serve -----------------------------------------------------------
     def _step(self, token, cache_edge, cache_cloud, pos):
@@ -1178,9 +1286,14 @@ class StatefulEdgeCloudPipeline:
         t_edge = sw.elapsed() * self.edge_scale
         t_transfer = self.net.transfer_time(xe.numel() * xe.element_size())
         sw = Stopwatch()
-        xc, new_c, b_c = self.cloud_fn(self.params, xe, cache_cloud, pos)
-        logits = self.head_fn(self.params, xc)
-        synchronize(dev)
+        xc, new_c, b_c = self.cloud_fn(self.cloud_params, xe, cache_cloud,
+                                       pos)
+        logits = self.head_fn(self.cloud_params, xc)
+        if self.mesh is None:
+            synchronize(dev)
+        else:
+            TP.synchronize_mesh(self.mesh)
+            logits, b_c = logits.to(dev), b_c.to(dev)
         t_cloud = sw.elapsed()
         bounds = torch.cat([b_e, b_c], 0)
         return logits, {**new_e, **new_c}, bounds, \
@@ -1210,7 +1323,9 @@ class StatefulEdgeCloudPipeline:
         """Throwaway forward on SCRATCH state: absorbs the first-execution
         spike without advancing (or touching) the live session."""
         s = self.session
-        zeros = lambda t: {k: torch.zeros_like(v) for k, v in t.items()}
+        dev = self.runner.device
+        zeros = lambda t: {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                           for k, v in t.items()}
         tok = torch.zeros((s.batch, 1), dtype=torch.long,
                           device=self.runner.device)
         _, _, _, timing = self._step(
@@ -1221,7 +1336,14 @@ class StatefulEdgeCloudPipeline:
 
     # -- memory accounting ------------------------------------------------
     def live_param_bytes(self) -> int:
-        return param_bytes(self.params) if self.ready else 0
+        """The weights' bytes, and a mesh build's copy at its logical size,
+        as the reference counts."""
+        if not self.ready:
+            return 0
+        n = param_bytes(self.params)
+        if self.mesh is not None:
+            n += self.cloud_params.logical_bytes
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -1260,7 +1382,9 @@ class StatefulPipelinePool(PipelinePool):
     ``SessionManager``: the whole batch hands off at once.  A pool's
     ``fault_plan`` mutates the transfer arm's payload in transit; the
     envelope check catches it and the hand-off recovers by masked
-    recompute (``HandoffReport.fallback``)."""
+    recompute (``HandoffReport.fallback``).  The hand-off runs before the
+    base activation, whose mesh transition (``reshard``) then moves the
+    imported or recomputed state onto the new placement."""
 
     def __init__(self, runner: StatefulStageRunner, net: NetworkModel,
                  sample_inputs, *,
@@ -1278,7 +1402,8 @@ class StatefulPipelinePool(PipelinePool):
     def _new_pipeline(self, key) -> StatefulEdgeCloudPipeline:
         return StatefulEdgeCloudPipeline(self.runner, key.split, self.net,
                                          session=self.session,
-                                         owns_weights=key.owns_weights)
+                                         owns_weights=key.owns_weights,
+                                         mesh_shape=key.mesh_shape)
 
     # -- hand-off ---------------------------------------------------------
     def _execute_handoff(self, old_split: int, new_split: int

@@ -73,9 +73,10 @@ def _project_qkv(cfg, p, h):
     v = h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    # heads from the weights' widths: a tensor-parallel shard holds some
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -91,11 +92,11 @@ def feed_forward(cfg, p, h):
     return Lyr.mlp(p["mlp"], h, gated=cfg.gated_mlp), None
 
 
-def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
-                    q_offset=0):
-    """Self-attention + MLP (or MoE) sublayers over a full sequence.
-    Returns (x, (k, v), aux) with k/v sequence-major (B, S, KH, hd) and
-    aux the MoE's load-balance loss (0 without one)."""
+def attn_out_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
+                  q_offset=0):
+    """The self-attention sublayer over a full sequence, up to its
+    residual add: ``(att @ wo, (k, v))``, k/v sequence-major (B, S, KH,
+    hd)."""
     h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p["attn"], h)
     if rope_cs is not None:
@@ -105,7 +106,17 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
     att = Lyr.attention(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, impl=impl)
     B, S = x.shape[:2]
-    x = x + att.reshape(B, S, -1) @ p["attn"]["wo"]
+    return att.reshape(B, S, -1) @ p["attn"]["wo"], (k, v)
+
+
+def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
+                    q_offset=0):
+    """Self-attention + MLP (or MoE) sublayers over a full sequence.
+    Returns (x, (k, v), aux) with k/v sequence-major (B, S, KH, hd) and
+    aux the MoE's load-balance loss (0 without one)."""
+    y, (k, v) = attn_out_full(cfg, p, x, rope_cs, impl=impl, causal=causal,
+                              window=window, q_offset=q_offset)
+    x = x + y
     h2 = _apply_norm(cfg, p["ln2"], x)
     ff, aux = feed_forward(cfg, p, h2)
     if aux is None:

@@ -10,7 +10,8 @@ take no page-locked block from the host allocator, and the training
 route: the chunked attention's backward against autograd through the
 naive attention, and a train step on the card against the CPU's.
 Imports only torch and the port, so it also runs where JAX is absent.
-Every test here needs the card and skips without it:
+The sharded cloud stage's executor runs there too, both shards on the
+card.  Every test here needs the card and skips without it:
 
     python -m pytest -m requires_cuda tests/test_torch_cuda.py
 """
@@ -885,3 +886,79 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device, copy=True)
+
+
+# ---------------------------------------------------------------------------
+# the sharded cloud stage: one shard's kernels, the executor on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_a_shards_shapes(cuda, dtype):
+    """qwen2.5-3b's shard on a 2-way mesh: 8 query heads over the 1 KV head
+    they read, D 128; flash_decode at pos 64 / 1024 / 2048 of a 2048-row
+    cache, flash_attention causal at 1024 and 2048 rows."""
+    q, k, v = _fd_inputs(cuda, 1, 8, 1, 128, dtype, seed=12, S=2048)
+    for pos in (64, 1024, 2048):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = FD.flash_decode_attention(q, k, v, pos=pos_t)
+        _fd_hold(out, FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+    for S in (1024, 2048):
+        _fa_compare(cuda, 1, S, S, 8, 1, 128, dtype, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_on_the_card_matches_one_device(cuda, dtype):
+    """Reduced qwen2.5-3b's cloud stage at tp 2 with both shards on the
+    card (``set_mesh_devices``) against the single-device forward at every
+    split (bf16: 1% of the largest logit; f32: 1e-4), each shard's
+    attention on the kernels; in f32, a decode stream moved onto the mesh
+    and back keeps the unswitched stream's tokens."""
+    from repro_torch.core.pipeline import EdgeCloudPipeline
+    from repro_torch.launch.mesh import reset_mesh_devices, set_mesh_devices
+    cfg = get_config("qwen2.5-3b").reduced()
+    params = init_model(cfg, device=cuda, dtype=dtype, seed=4)
+    runner = StageRunner(cfg, params, attn_impl="kernel", device=cuda)
+    gen = torch.Generator().manual_seed(5)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (1, 64),
+                                      generator=gen).to(cuda)}
+    mono = runner.run_units(inputs, 0, runner.num_units)["logits"].float()
+    tol = 1e-2 * mono.abs().max().item() if dtype == torch.bfloat16 \
+        else 1e-4
+    set_mesh_devices(["cuda:0"] * 2)
+    try:
+        for split in range(runner.num_units - 1):
+            pipe = EdgeCloudPipeline(runner, split, NetworkModel(20.0),
+                                     mesh_shape=(2,))
+            pipe.build(inputs, cold=False)
+            before = FA.flash_attention.launches
+            got, _ = pipe.process(inputs)
+            torch.cuda.synchronize()
+            cloud = cfg.num_layers - split
+            assert FA.flash_attention.launches == before + split + 2 * cloud
+            assert (got.float() - mono).abs().max().item() <= tol, split
+            pipe.close()
+        if dtype == torch.bfloat16:
+            return          # greedy tokens in bf16 can flip on a rounding
+        kw = dict(split=1, net=NetworkModel(50.0), prompt_len=8,
+                  max_seq=32, seed=3, device=cuda, dtype=dtype)
+        mgr, sess = make_stateful_manager(cfg, **kw)
+        for _ in range(6):
+            mgr.serve(None)
+        want = sess.tokens.clone()
+        mgr.close()
+        mgr, sess = make_stateful_manager(cfg, **kw)
+        mgr.serve(None)
+        mgr.set_mesh_shape((2,))
+        assert mgr.repartition("switch_b2", 1).mesh_change
+        before = FD.flash_decode_attention.launches
+        for _ in range(3):
+            mgr.serve(None)
+        assert FD.flash_decode_attention.launches == before + 3 * (1 + 2)
+        mgr.set_mesh_shape(None)
+        assert mgr.repartition("switch_b2", 1).mesh_change
+        for _ in range(2):
+            mgr.serve(None)
+        assert torch.equal(sess.tokens, want)
+        mgr.close()
+    finally:
+        reset_mesh_devices()

@@ -30,6 +30,8 @@ from repro_torch.core.pipeline import EdgeCloudPipeline  # noqa: E402
 from repro_torch.core.stages import StageRunner  # noqa: E402
 from repro_torch.core.stateful import make_stateful_manager  # noqa: E402
 from repro_torch.core.switching import PipelineManager  # noqa: E402
+from repro_torch.launch.mesh import (reset_mesh_devices,  # noqa: E402
+                                     set_mesh_devices)
 from repro_torch.models.transformer import init_model  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 
@@ -100,8 +102,19 @@ def test_pipeline_matches_jax_pipeline(pair):
     assert tp.live_param_bytes() == jp.live_param_bytes()
     tp.close()
     assert not tp.ready and tp.live_param_bytes() == 0
-    with pytest.raises(NotImplementedError):
-        EdgeCloudPipeline(tr, 1, NetworkModel(20.0), mesh_shape=(2,))
+    # the reference's sharded cloud stage: a 2-way mesh (two shards on the
+    # CPU) serves the same logits and holds a second, sharded weight copy
+    set_mesh_devices(["cpu"] * 2)
+    try:
+        mp = EdgeCloudPipeline(tr, 1, NetworkModel(20.0), mesh_shape=(2,))
+        assert mp.build({"tokens": torch.from_numpy(tokens)},
+                        cold=False).t_reshard > 0.0
+        got, _ = mp.process({"tokens": tokens})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        assert mp.live_param_bytes() == 2 * jp.live_param_bytes()
+        mp.close()
+    finally:
+        reset_mesh_devices()
 
 
 def test_switching_preserves_logits_every_strategy(pair):

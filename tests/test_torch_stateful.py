@@ -323,14 +323,15 @@ def test_unported_parts_raise():
     for arch in ("falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b",
                  "mixtral-8x22b", "internvl2-76b"):
         assert unit_list(tget(arch))[0] == ("layer", 0)
-    with pytest.raises(NotImplementedError):
-        PipelineKey(split=1, mesh_shape=(1, 2))
+    # the sharded slice is ported (tests/test_torch_tp.py): a key's mesh
+    # shape normalises to a tuple of ints, as the reference's does
+    assert PipelineKey(split=1, mesh_shape=[1, 2]).mesh_shape == (1, 2)
     # fault plans are ported (tests/test_torch_faults.py): the pool keeps one
     plan = object()
     assert PipelinePool(None, NetworkModel(20.0), {},
                         fault_plan=plan).fault_plan is plan
-    with pytest.raises(NotImplementedError):
-        PipelinePool(None, NetworkModel(20.0), {}, mesh_shape=(2,))
+    pool = PipelinePool(None, NetworkModel(20.0), {}, mesh_shape=[2])
+    assert pool.mesh_shape == (2,) and pool.make_key(3).mesh_shape == (2,)
 
 
 def test_pool_warms_the_transfer_export():
