@@ -113,10 +113,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                under switch_b2, switch_a and pause_resume (reloading phase
                4's checkpoint), handing off on the plan's arm, and once
                more under switch_b2 and switch_a pinned to the transfer
-               arm (switch_b2 over switch_a by at least twice the spread of
-               the export walls; each export's wall split into its copies
-               into page-locked memory and its CRC32 pass, beside the
-               import's CRC32 pass); checks the measured stream downtime
+               arm (switch_b2 over switch_a, and by at least twice the
+               spread of the exports' copies into page-locked memory net
+               of each switch's two host CRC32 passes, the export's and
+               the import's, which both strategies run over the same
+               bytes; the raw margin and the export walls' spread printed
+               beside); checks the measured stream downtime
                order, switch drops,
                each step's and admission's launches, and every live
                slot's logits
@@ -174,7 +176,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                logit row held to ``forward_hidden`` over the 448 tokens
                within 5% of the largest logit; prints the request's and
                the step's wall and busy time, the device time of the
-               step's plain cross attention, and the peak memory.
+               step's plain cross attention, and the peak memory; then
+               phase 12's stateless part for it (its cloud stage on the
+               mesh).
 11. training — (a) the chunked flash attention's backward
                (``attention(impl="chunked")``) against autograd through
                ``naive_attention`` at qwen2.5-3b's training shape (B 1, S
@@ -198,35 +202,51 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                step wall, tokens/s, model FLOP/s (6 N T) as a share of
                the FP32 peak, the peak memory and the profiled step's
                busy time, idle share and top device operations.
-12. sharding — qwen2.5-3b only, after its phase 7, its weights loaded
-               (full width and depth, bf16): a 2-way tensor-parallel cloud
-               mesh (``repro_torch.distributed.tp``), one shard a card
-               where there are two cards, else both on ``cuda:0``
-               (``set_mesh_devices``; the mapping is printed).  (a) both
-               attention kernels at one shard's shapes (8 query heads over
-               1 KV head of 128: flash_decode at pos 64 / 1024 / 2048,
-               flash_attention causal at 1024 and 2048 rows) against their
-               plain versions in f32 and bf16, and their times; (b) a
-               1024-token request through the stateless pipeline on one
-               device, then switch_b2 onto the mesh at the same split,
-               switch_a to another split on it and switch_b2 back: logits
-               within 5% of the largest of the first request's, two
-               requests on the mesh bit-equal, each mesh transition on its
+12. sharding — the cloud stage on a 2-way tensor-parallel mesh
+               (``repro_torch.distributed.tp``), full width, bf16, after
+               each model's phases 4-6 while its weights are loaded:
+               qwen2.5-3b (full depth, after its phase 7), falcon-mamba-7b
+               (channel-parallel Mamba-1), zamba2-7b (head-parallel
+               Mamba-2 and the shared block), qwen2-moe-a2.7b
+               (expert-parallel), the three cut for memory to
+               ``SHARD_DEPTH`` (printed), and inside phase 10
+               whisper-medium (stateless only: its decoder's self and
+               cross attention by heads).  One shard a card where there
+               are two cards, else both on ``cuda:0``
+               (``set_mesh_devices``; the mapping is printed).  (a) the
+               family's kernels at one shard's shapes (its attention
+               heads: flash_decode at pos 64 / 1024 / 2048 where the
+               stateful path runs, flash_attention at the prefill's or
+               whisper's calls; mamba1_scan over half the channels,
+               ssd_scan over half the heads, at S 1 and 1024) against
+               their plain versions in f32 and bf16, and their times; (b)
+               a request through the stateless pipeline on one device,
+               then switch_b2 onto the mesh at the same split, switch_a
+               to another split on it and switch_b2 back: logits within
+               5% of the largest of the first request's (an MoE's: on
+               the tokens the mesh routed as one device did, the
+               re-routed ones counted; and in f32, its first two layers
+               all on the mesh, every token routed alike and the logits
+               within 1e-4 of the largest), two requests on
+               the mesh bit-equal, each mesh transition on its
                ``SwitchReport`` and ``ReshardReport`` moving no weight
-               bytes (built pipelines placed theirs at build), and the
-               launches of each request (the cloud range's scaled by tp);
-               (c) the stateful pipeline (prompt 1024, max_seq 2048): 8
-               steps, switch_b2 onto the mesh at the same split, 8 steps,
-               back, 8 steps, each step's logits within 5% of an
-               unswitched session's fed the same tokens, each transition
-               moving exactly the live cloud-range state, and each step's
-               launches; (d) prints the request's and the step's wall and
-               busy time on the mesh beside one device's, the all-reduces
-               a step and their device time, peak memory,
-               ``BuildReport.t_reshard`` and ``calibrate_mesh``'s scales
-               beside the mapping (with both shards on one card they are
-               fitted to walls with no link in them: not a tensor-parallel
-               speed).
+               bytes (built pipelines placed theirs at build), the
+               launches of each request (the cloud range's scaled by tp)
+               and its all-reduces (2 an attention + MLP or MoE layer or
+               a Mamba layer, 3 a whisper decoder layer); (c) the
+               stateful pipeline (prompt 1024, max_seq 2048): 8 steps,
+               switch_b2 onto the mesh at the same split, 8 steps, back,
+               8 steps, each step's logits within 5% of an unswitched
+               session's fed the same tokens (an MoE's re-routed steps
+               counted), each transition moving
+               exactly the live cloud-range state (KV, conv and SSM
+               state), each step's launches and all-reduces; (d) prints
+               the request's and the step's wall and busy time on the
+               mesh beside one device's, the all-reduces and their device
+               time, peak memory, ``BuildReport.t_reshard`` and
+               ``calibrate_mesh``'s scales beside the mapping (with both
+               shards on one card they are fitted to walls with no link
+               in them: not a tensor-parallel speed).
 13. report   — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
@@ -1172,8 +1192,9 @@ def expected(K: Counts, cfg, lo: int, hi: int, mode: str) -> dict:
     one attention kernel per attention unit (flash_decode in a decode step,
     flash_attention in a full pass; the hybrid family's shared-attention
     applications among them) and one scan kernel per mamba layer.
-    Whisper's full pass over the whole model also runs its encoder (one
-    flash_attention a layer) and each decoder layer's cross attention
+    Whisper's full pass from layer 0 also runs its encoder (one
+    flash_attention a layer; in unit 0, with the edge) and each decoder
+    layer's cross attention
     (another); its decode step's cross attention is the plain
     ``decode_attention``, as the reference's."""
     out = dict.fromkeys(K.wrappers, 0)
@@ -1181,7 +1202,8 @@ def expected(K: Counts, cfg, lo: int, hi: int, mode: str) -> dict:
         if mode == "decode":
             out["flash_decode_attention"] = hi - lo
         else:
-            out["flash_attention"] = cfg.encoder.num_layers + 2 * (hi - lo)
+            out["flash_attention"] = 2 * (hi - lo) + (
+                cfg.encoder.num_layers if lo == 0 else 0)
         return out
     from repro_torch.core.stateful import unit_index_of_split, unit_list
     units = unit_list(cfg)[unit_index_of_split(cfg, lo):
@@ -2271,10 +2293,11 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
     same admissions and tokens: bit-equal before the first hand-off (the
     mid-flight admission among those steps) and after every transfer
     hand-off, within ``LOGIT_RTOL`` of the largest logit after a
-    re-prefill.  The transfer streams' downtimes are printed side by side
-    with the margin and each export's wall, not ordered: the exports'
-    spread (a process's first page-locked allocation) can reach half
-    switch_b2's margin there (ROADMAP Queue C item 6).
+    re-prefill.  The transfer streams' downtimes are ordered, switch_b2's
+    over switch_a's, and by at least twice the spread of the exports'
+    copies into page-locked memory once each switch's host CRC32 passes
+    are taken out (ROADMAP Queue C item 1); the raw margin and the export
+    walls' spread are printed beside.
 
     7b: the same pool under switch_b2 driven by a ``NeukonfigController``
     on ``CTL_TRACE`` with every transfer payload corrupted in transit
@@ -2469,11 +2492,14 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
           f"switches")
     check(runs["pause_resume"]["switch_drops"] > 0,
           "7a: pause_resume's outages dropped nothing")
-    # the transfer arm: switch_b2 over switch_a by at least twice the
-    # spread of the export walls (ROADMAP Queue C item 6: the pool takes
-    # the exports' page-locked blocks when it is made, so no export
-    # allocates them in a switch); each switch's hand-off wall and its
-    # export half beside them
+    # the transfer arm: switch_b2 over switch_a.  Both strategies run the
+    # same two host CRC32 passes (export and import) over the same bytes,
+    # whose rate varies 3x from stream to stream (ROADMAP Queue C item 1):
+    # the margin is compared net of each switch's measured passes, against
+    # twice the spread of the exports' copies into page-locked memory (the
+    # pool takes their blocks when it is made, so no export allocates
+    # them in a switch).  The raw margin and the export walls' spread are
+    # printed beside the net ones.
     tr = {k: runs[f"{k} transfer"] for k in ("switch_b2", "switch_a")}
     walls = {k: (r["handoff_wall_s"],
                  [p["handoff_parts"].get("export", {}).get("wall_s")
@@ -2489,21 +2515,34 @@ def phase_serving(K, cfg, params, ckpt, seed, gclog: GcLog) -> dict:
                    for key in ("export", "import")
                    if key in p["handoff_parts"]}
                   for p in r["switch_probes"]] for k, r in tr.items()}
+    crc = {k: sum(half["crc_s"] for parts in v for half in parts.values())
+           for k, v in split.items()}
+    copies = [parts["export"]["copy_s"] for v in split.values()
+              for parts in v if "export" in parts]
+    net_margin = margin - crc["switch_b2"] + crc["switch_a"]
+    copy_spread = max(copies) - min(copies) if copies else None
     out.update({"transfer_order_held": held, "transfer_margin_s": margin,
                 "transfer_export_spread_s": spread,
+                "transfer_crc_s": crc, "transfer_net_margin_s": net_margin,
+                "transfer_copy_spread_s": copy_spread,
                 "transfer_handoff_parts": split})
     print(f"[serving] 7a transfer hand-offs, each half's wall, copies into "
           f"page-locked memory and CRC32 pass (s): {split}")
     print(f"[serving] 7a on the transfer arm: measured downtime switch_b2 "
           f"{tr['switch_b2']['downtime_s']:.6f} s beside switch_a "
           f"{tr['switch_a']['downtime_s']:.6f} s; switch_b2 > switch_a "
-          f"{'held' if held else 'did not hold'}, margin {margin:.6f} s "
+          f"{'held' if held else 'did not hold'}; raw margin {margin:.6f} s "
           f"against an export spread of {spread} s (twice it "
-          f"{2 * spread:.6f} s); hand-off and export walls {walls} s")
-    check(held and spread is not None and margin >= 2 * spread,
+          f"{2 * spread:.6f} s); the CRC32 passes {crc} s; net of them "
+          f"margin {net_margin:.6f} s against twice the exports' copies' "
+          f"spread {copy_spread} s; hand-off and export walls "
+          f"{walls} s")
+    check(held and copy_spread is not None
+          and net_margin >= 2 * copy_spread,
           f"7a: on the transfer arm switch_b2's downtime exceeds switch_a's "
-          f"by {margin} s, want at least twice the exports' spread "
-          f"{spread} s")
+          f"by {margin} s, {net_margin} s net of the CRC32 passes {crc}; "
+          f"want switch_b2 over switch_a, and the net margin at least twice "
+          f"the exports' copies' spread {copy_spread} s")
     out["streams"] = runs
 
     # --- 7b: the controller on the bandwidth trace, corrupted transfers --
@@ -2895,6 +2934,10 @@ MODELS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b", "qwen2-moe-a2.7b",
 # internvl2-76b's 80 are 141 GB (1.71 GB a layer, 4.33 GB of embedding,
 # untied head and vision_proj), 6 are 14.6 GB
 DEPTH = {"qwen2-moe-a2.7b": 12, "internvl2-76b": 6}
+# the models whose cloud stage phase 12 runs on the mesh after their
+# phases 4-6 (and 7); whisper-medium's runs in phase 10
+SHARD_ARCHS = ("qwen2.5-3b", "falcon-mamba-7b", "zamba2-7b",
+               "qwen2-moe-a2.7b")
 
 
 def run_model(K, arch, seed, gclog: GcLog) -> dict:
@@ -2961,6 +3004,7 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
             sv["phase_wall_s"] = time.perf_counter() - t7
             print(f"[serving] phase 7 took {sv['phase_wall_s']:.1f} s")
             free_memory()
+        if arch in SHARD_ARCHS:
             # phase 12 keeps its own peak: the model's so far is kept here
             peak_before = torch.cuda.max_memory_allocated()
             sh = phase_sharding(K, cfg, params, seed, gclog)
@@ -2998,11 +3042,16 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
 
 SHARD_MESH = (2,)
 SHARD_STEPS = 8
-# one shard's attention at qwen2.5-3b's width on the 2-way mesh: 8 of the
-# 16 query heads over the 1 KV head they read
-FD_SHARD = dict(B=1, H=8, KH=1, S=MAX_SEQ, D=128)
-FA_SHARD = dict(B=1, H=8, KH=1, D=128)
 SHARD_POS = (64, 1024, 2048)
+# depth cut for memory: phase 12 holds the loaded model beside ~5.6 more
+# logical copies of the weights it runs (a mesh copy a built pipeline,
+# switch_a's standby and its re-armed successor each owning a copy and its
+# mesh copy; qwen2.5-3b peaks at 40.85 GB on 6.17 GB, PERF.md), so
+# the 7B models run about half their phases 4-6 depth there: 32 of
+# falcon-mamba-7b's 64 layers (7.81 GB), 42 of zamba2-7b's 81 (7.42 GB, 7
+# shared-block applications), 6 of qwen2-moe-a2.7b's 12 (8.09 GB); the
+# layers are views of the loaded stack, nothing is copied
+SHARD_DEPTH = {"falcon-mamba-7b": 32, "zamba2-7b": 42, "qwen2-moe-a2.7b": 6}
 
 
 def shard_mapping() -> list:
@@ -3013,43 +3062,254 @@ def shard_mapping() -> list:
     return ["cuda:0"] * n
 
 
-def shard_kernels(FA, FD, seed: int) -> dict:
-    """12a: both attention kernels at one shard's shapes against their
-    plain versions (f32 and bf16), and their times in bf16."""
+def shard_cut(cfg, params):
+    """``cfg`` and ``params`` at ``SHARD_DEPTH``'s depth: the first layers
+    of the stack, as views (the shared block and the head kept)."""
+    n = SHARD_DEPTH.get(cfg.name)
+    if n is None or n >= cfg.num_layers:
+        return cfg, params
+    from repro_torch.core.stages import tree_map
+    print(f"[shard] {cfg.name}: phase 12 runs {n} of its {cfg.num_layers} "
+          f"layers (cut for memory; full width)")
+    return (dataclasses.replace(cfg, num_layers=n),
+            dict(params, layers=tree_map(lambda t: t[:n], params["layers"])))
+
+
+def shard_attention(cfg) -> tuple:
+    """One shard's attention at the config's width on the mesh (B, H, KH,
+    D) and its full-sequence calls (Sq, Sk, causal): whisper's decoder
+    (448 tokens) and cross attention (against 1500 frames), or the
+    1024- and 2048-row causal prefill."""
+    tp = SHARD_MESH[-1]
+    full = dict(B=1, H=cfg.num_heads // tp,
+                KH=max(cfg.num_kv_heads // tp, 1), D=cfg.head_dim)
+    if cfg.family == "audio":
+        T = WHISPER_TOKENS
+        return full, ((T, T, True), (T, cfg.encoder.context_len, False))
+    return full, tuple((S, S, True) for S in FA_FULL_S)
+
+
+def shard_kernels(cfg, seed: int, stateful: bool) -> dict:
+    """12a: the kernels of the family's cloud stage at one shard's shapes
+    against their plain versions (f32 and bf16), and their times in bf16:
+    the attention kernels at a shard's heads (flash_decode at
+    ``SHARD_POS`` over ``MAX_SEQ`` rows where the stateful path runs),
+    mamba1_scan over a shard's channels and ssd_scan over its heads, at a
+    decode step (S 1, from a state) and the prompt (S 1024)."""
+    from repro_torch.core.hardware import H100, H100_F32_FLOPS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import ssd_scan as SD
     errs, rel, hold = tally()
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    tp = SHARD_MESH[-1]
+    out = {}
 
-    def rand(shape, dtype):
+    def rand(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
     def inputs(B, Sq, Sk, H, KH, D, dtype):
         return (rand((B, Sq, H, D), dtype), rand((B, Sk, KH, D), dtype),
                 rand((B, Sk, KH, D), dtype))
 
-    B, H, KH, S, D = (FD_SHARD[x] for x in ("B", "H", "KH", "S", "D"))
-    for dtype in (torch.float32, torch.bfloat16):
-        bf16 = dtype == torch.bfloat16
-        q = rand((B, 1, H, D), dtype)
-        k, v = rand((B, KH, S, D), dtype), rand((B, KH, S, D), dtype)
-        for pos in SHARD_POS:
-            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-            hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
-                 FD.flash_decode_attention_plain(q, k, v, pos=pos_t),
-                 f"flash_decode shard {FD_SHARD} pos {pos}", bf16)
-        for Sq in FA_FULL_S:
-            qa, ka, va = inputs(B, Sq, Sq, H, KH, D, dtype)
-            hold(FA.flash_attention(qa, ka, va, causal=True),
-                 FA.flash_attention_plain(qa, ka, va, causal=True),
-                 f"flash_attention shard H={H} KH={KH} S={Sq}", bf16)
-    decode = time_decode(FD, rand, B, H, KH, S, D)
-    prefill = [time_attention(FA, inputs, FA_SHARD, Sq, Sq, True)
-               for Sq in FA_FULL_S]
-    print(f"[shard] kernels at a shard's shapes match their plain "
-          f"versions: max abs err {errs}, bf16 at most "
-          f"{rel['bfloat16']:.3e} of max|plain|; flash_decode n_split "
-          f"{FD.split_plan(B, KH, S, FD.row_tile(H // KH)[1])}")
-    return {"max_abs_err": errs, "bf16_rel": rel["bfloat16"],
-            "flash_decode": decode, "flash_attention": prefill}
+    if cfg.family != "ssm":
+        full, calls = shard_attention(cfg)
+        B, H, KH, D = (full[x] for x in ("B", "H", "KH", "D"))
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            if stateful:
+                q = rand((B, 1, H, D), dtype)
+                k, v = rand((B, KH, MAX_SEQ, D), dtype), \
+                    rand((B, KH, MAX_SEQ, D), dtype)
+                for pos in SHARD_POS:
+                    pos_t = torch.tensor(pos, dtype=torch.int32,
+                                         device="cuda")
+                    hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
+                         FD.flash_decode_attention_plain(q, k, v, pos=pos_t),
+                         f"flash_decode shard {full} pos {pos}", bf16)
+            for Sq, Sk, causal in calls:
+                qa, ka, va = inputs(B, Sq, Sk, H, KH, D, dtype)
+                hold(FA.flash_attention(qa, ka, va, causal=causal),
+                     FA.flash_attention_plain(qa, ka, va, causal=causal),
+                     f"flash_attention shard {full} {Sq}x{Sk} causal "
+                     f"{causal}", bf16)
+        if stateful:
+            out["flash_decode"] = time_decode(FD, rand, B, H, KH, MAX_SEQ, D)
+        out["flash_attention"] = [time_attention(FA, inputs, full, Sq, Sk,
+                                                 causal)
+                                  for Sq, Sk, causal in calls]
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        N = s.d_state
+        if s.kind == "mamba1":
+            Di = cfg.d_inner // tp
+            name, mod, shape = "mamba1_scan", MS, {"Di": Di, "N": N}
+
+            def make(S, dtype):
+                dt = torch.nn.functional.softplus(rand((1, S, Di))).to(dtype)
+                dbc = rand((1, S, 8 + 2 * N), dtype)
+                return (dt, dbc[..., 8:8 + N], dbc[..., 8 + N:],
+                        rand((1, S, Di), dtype), -torch.exp(rand((Di, N))
+                                                            * 0.2))
+
+            def state():
+                return rand((1, Di, N))
+            rate = H100_F32_FLOPS
+        else:
+            Hs, P = cfg.d_inner // s.head_dim // tp, s.head_dim
+            name, mod, shape = "ssd_scan", SD, {"H": Hs, "P": P, "N": N}
+
+            def make(S, dtype):
+                dt = torch.nn.functional.softplus(rand((1, S, Hs)))
+                xbc = rand((1, S, Hs * P + 2 * N), dtype)
+                return (dt, xbc[..., Hs * P:Hs * P + N],
+                        xbc[..., Hs * P + N:],
+                        xbc[..., :Hs * P].reshape(1, S, Hs, P),
+                        -torch.exp(rand((Hs,)) * 0.3))
+
+            def state():
+                return rand((1, Hs, P, N))
+            rate = H100.flops
+        scan = getattr(mod, name)
+        plain = getattr(mod, name + "_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            for S in SCAN_S:
+                args = make(S, dtype)
+                h0 = state() if S == 1 else None
+                y, h = scan(*args, h0=h0)
+                yw, hw = plain(*args, h0=h0)
+                bf16 = dtype == torch.bfloat16
+                hold(y, yw, f"{name} y shard {shape} S {S}", bf16)
+                hold(h, hw, f"{name} h shard {shape} S {S}", bf16)
+        timed = []
+        for S in SCAN_S:
+            one = make(S, torch.bfloat16)
+            h0 = state() if S == 1 else None
+            nbytes = mod.bound_bytes(one[0], one[1], one[3], h0 is not None)
+            n = max(2, -(-128 * 2 ** 20 // nbytes))
+            sets = [one] + [make(S, torch.bfloat16) for _ in range(n - 1)]
+            h0s = [h0 if h0 is None else state() for _ in range(n)]
+            exps = MS.bound_exps(one[3], one[1]) if mod is MS else 0
+            t = time_scan(lambda i: scan(*sets[i % n], h0=h0s[i % n]),
+                          lambda i: plain(*sets[i % n], h0=h0s[i % n]),
+                          n, 200 if S == 1 else 20, 20 if S == 1 else 2,
+                          nbytes, mod.bound_flops(one[3], one[1]), rate,
+                          exps)
+            t["shape"] = dict(shape, B=1, S=S, dtype="bfloat16",
+                              h0=h0 is not None)
+            timed.append(t)
+            print(f"[shard] {name} at a shard's {shape}, bf16, S={S}: "
+                  f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+                  f"bound {t['bound_ms']:.6f} ms ({t['bound_term']})")
+            del sets, h0s
+        out[name] = timed
+    print(f"[shard] {cfg.name}: the kernels at a shard's shapes match their "
+          f"plain versions: max abs err {errs}, bf16 at most "
+          f"{rel['bfloat16']:.3e} of max|plain|")
+    return dict(out, max_abs_err=errs, bf16_rel=rel["bfloat16"])
+
+
+@contextlib.contextmanager
+def recorded_routes(log: list):
+    """Append to ``log`` every MoE routing's choice a token (its experts
+    and whether each assignment was kept; ``layers.moe_route``) while
+    open."""
+    from repro_torch.models import layers as Lyr
+    real = Lyr.moe_route
+
+    def run(router, x, **kw):
+        r = real(router, x, **kw)
+        log.append(torch.cat([r["idx"], r["keep"].reshape(r["idx"].shape)],
+                             -1).cpu())
+        return r
+    Lyr.moe_route = run
+    try:
+        yield log
+    finally:
+        Lyr.moe_route = real
+
+
+def rerouted(one: list, mesh: list, at: int, tp: int) -> torch.Tensor:
+    """The tokens whose MoE routing in a pass with layers ``[at, L)`` on
+    the mesh differs from one device's in any layer (``recorded_routes``:
+    ``one`` a routing a layer; ``mesh`` one a layer on the edge, then one
+    a shard a layer on the mesh, every shard's checked equal)."""
+    if not one and not mesh:                # no MoE
+        return torch.zeros(0, dtype=torch.bool)
+    check(len(mesh) == at + tp * (len(one) - at),
+          f"{len(mesh)} routings on the mesh for {len(one)} layers")
+    out = torch.zeros(one[0].shape[0], dtype=torch.bool)
+    for li, a in enumerate(one):
+        if li < at:
+            b = mesh[li]
+        else:
+            shards = mesh[at + (li - at) * tp:at + (li - at + 1) * tp]
+            check(all(torch.equal(x, shards[0]) for x in shards),
+                  f"layer {li}: the shards route differently")
+            b = shards[0]
+        out |= (a != b).any(-1)
+    return out
+
+
+def row_diffs(x, ref) -> torch.Tensor:
+    """Each row's (token's) largest |logit diff|."""
+    return (x.float() - ref.float()).abs().reshape(-1, x.shape[-1]) \
+        .amax(-1).cpu()
+
+
+MOE_F32_LAYERS = 2
+
+
+def moe_in_f32(cfg, params, prompt, tp: int) -> dict:
+    """An MoE's cloud stage on the mesh in f32, where no rounding flips a
+    routing: the first ``MOE_F32_LAYERS`` layers at full width, every one
+    on the mesh (split 0), against one device's forward.  Every token
+    must route alike and the logits agree within ``FP32_ATOL`` of the
+    largest."""
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.core.pipeline import EdgeCloudPipeline
+    from repro_torch.core.stages import StageRunner, tree_map
+    n = MOE_F32_LAYERS
+    cfg = dataclasses.replace(cfg, num_layers=n)
+    p32 = tree_map(lambda t: t.float(), dict(
+        params, layers=tree_map(lambda t: t[:n], params["layers"])))
+    runner = StageRunner(cfg, p32, attn_impl="kernel", device="cuda")
+    with recorded_routes([]) as one:
+        mono = runner.run_units(prompt, 0, runner.num_units)["logits"]
+    pipe = EdgeCloudPipeline(runner, 0, NetworkModel(20.0),
+                             mesh_shape=SHARD_MESH)
+    pipe.build(prompt, cold=False)
+    with recorded_routes([]) as mesh:
+        got, _ = pipe.process(prompt)
+    pipe.close()
+    moved = int(rerouted(one, mesh, 0, tp).sum())
+    scale = mono.abs().max().item()
+    err = max_diff(got, mono)
+    print(f"[shard] {cfg.name} in f32, {n} layers on the mesh: tokens "
+          f"re-routed {moved}; max |logit diff| {err:.3e} (max |logit| "
+          f"{scale:.3e})")
+    check(moved == 0 and err <= FP32_ATOL * scale,
+          f"{cfg.name} in f32 on the mesh: {moved} tokens re-routed, "
+          f"logits off by {err} (> {FP32_ATOL} of {scale})")
+    del runner, p32, mono, got
+    free_memory()
+    return {"layers": n, "rerouted_rows": moved, "max_logit_diff": err,
+            "max_logit": scale}
+
+
+def all_reduces(cfg, lo: int, hi: int) -> int:
+    """All-reduces a pass over layers [lo, hi) on the mesh makes when no
+    block degrades: 2 an attention + MLP or MoE layer or shared-block
+    application (after ``wo`` and the MLP's ``w_down``), 2 a Mamba layer
+    (Mamba-1: ``x_proj``'s outputs and ``out_proj``; Mamba-2: the gated
+    norm's sum of squares and ``out_proj``), 3 a whisper decoder layer
+    (its cross attention's ``wo`` besides)."""
+    if cfg.family == "audio":
+        return 3 * (hi - lo)
+    from repro_torch.core.stateful import unit_index_of_split, unit_list
+    return 2 * len(unit_list(cfg)[unit_index_of_split(cfg, lo):
+                                  unit_index_of_split(cfg, hi)])
 
 
 def all_reduce_ms(shape, devices, calls: int) -> float:
@@ -3064,40 +3324,42 @@ def all_reduce_ms(shape, devices, calls: int) -> float:
     return ms
 
 
-def phase_sharding(K, cfg, params, seed, gclog: GcLog) -> dict:
-    """Phase 12, qwen2.5-3b at full width and depth (its weights loaded):
-    the kernels at a shard's shapes, then the stateless and the stateful
-    pipelines moved onto a 2-way tensor-parallel mesh and back."""
+def phase_sharding(K, cfg, params, seed, gclog: GcLog, *,
+                   stateful: bool = True) -> dict:
+    """Phase 12 for ``cfg`` at full width (its weights loaded; cut to
+    ``SHARD_DEPTH`` by ``shard_cut``): the kernels at a shard's shapes,
+    then the stateless and (``stateful``) the stateful pipelines moved
+    onto a 2-way tensor-parallel mesh and back."""
     from repro_torch.core.network import NetworkModel
     from repro_torch.core.profiler import calibrate_mesh, profile_transformer
     from repro_torch.core.stages import StageRunner
-    from repro_torch.core.stateful import make_stateful_manager
     from repro_torch.core.switching import PipelineManager
     from repro_torch.distributed import tp as TP
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import flash_decode as FD
     from repro_torch.launch.mesh import reset_mesh_devices, set_mesh_devices
 
     t0 = time.perf_counter()
+    cfg, params = shard_cut(cfg, params)
+    arch = cfg.name
     mapping = shard_mapping()
     tp = SHARD_MESH[-1]
     set_mesh_devices(mapping)
     one_card = len(set(mapping)) < tp
-    print(f"[shard] mesh {SHARD_MESH} on {mapping} "
+    print(f"[shard] {arch}: mesh {SHARD_MESH} on {mapping} "
           f"({torch.cuda.device_count()} card(s) visible): "
           + ("every shard on one card: no link between the shards, and no "
              "tensor-parallel speed-up is measured" if one_card
              else "one shard a card"))
     try:
-        kern = shard_kernels(FA, FD, seed + 12)
+        kern = shard_kernels(cfg, seed + 12, stateful)
         free_memory()
         L = cfg.num_layers
         split, other = L // 2, L // 4
         torch.cuda.reset_peak_memory_stats()
         K.reset()
         # --- 12b: the stateless pipeline ------------------------------
-        gclog.label = "qwen2.5-3b phase 12b"
+        gclog.label = f"{arch} phase 12b"
         prompt = stateless_request(cfg, seed + 2)
+        rows = prompt["tokens"].shape[1] + cfg.frontend_tokens
         runner = StageRunner(cfg, params, attn_impl="kernel", device="cuda")
         mgr = PipelineManager(runner, split=split, net=NetworkModel(20.0),
                               sample_inputs=prompt)
@@ -3113,7 +3375,7 @@ def phase_sharding(K, cfg, params, seed, gclog: GcLog) -> dict:
             cloud = expected(K, cfg, at, L, "full")
             for name, n in scaled(cloud, tp if on_mesh else 1).items():
                 want[name] += n
-            check(got == want, f"phase 12b: a request at split {at} "
+            check(got == want, f"phase 12b {arch}: a request at split {at} "
                                f"(mesh {on_mesh}) launched {got}, want {want}")
             request_ms["mesh" if on_mesh else "one device"].append(
                 (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
@@ -3122,189 +3384,274 @@ def phase_sharding(K, cfg, params, seed, gclog: GcLog) -> dict:
                 timings.append(timing)
             return logits.float()
 
-        first = serve(split, False)
+        # an MoE's routing is recorded around each request: a bf16
+        # rounding of the mesh's partial sums can flip a near-tie between
+        # two experts, and capacity then re-routes other tokens too
+        routes = {"one device": [], "mesh": []}
+
+        def routed(at: int, on_mesh: bool):
+            with recorded_routes([]) as log:
+                x = serve(at, on_mesh)
+            routes["mesh" if on_mesh else "one device"].append((at, log))
+            return x
+
+        first = routed(split, False)
         scale = first.abs().max().item()
         mgr.set_mesh_shape(SHARD_MESH)
         reps = [mgr.repartition("switch_b2", split)]
         ar0 = TP.all_reduce.calls
-        on_mesh = [serve(split, True), serve(split, True)]
+        on_mesh = [routed(split, True), routed(split, True)]
         ar_request = (TP.all_reduce.calls - ar0) // 2
+        check(ar_request == all_reduces(cfg, split, L),
+              f"phase 12b {arch}: {ar_request} all-reduces a request, want "
+              f"{all_reduces(cfg, split, L)}")
         check(torch.equal(on_mesh[0], on_mesh[1]),
-              "phase 12b: two requests on one mesh are not bit-equal")
+              f"phase 12b {arch}: two requests on one mesh are not "
+              f"bit-equal")
         mgr.build_standby(other)
         reps.append(mgr.repartition("switch_a", other))
         mgr.drain()
-        on_mesh.append(serve(other, True))
-        prof_mesh = profile_step(lambda: mgr.serve(prompt)[0],
-                                 request_bound_ms(cfg, params, PROMPT),
+        on_mesh.append(routed(other, True))
+        n_self = L if cfg.family == "audio" \
+            else expected(K, cfg, 0, L, "full")["flash_attention"]
+        bound = request_bound_ms(cfg, params, rows,
+                                 attention_flops(cfg, rows, n_self)
+                                 + frontend_flops(cfg, params, rows))
+        prof_mesh = profile_step(lambda: mgr.serve(prompt)[0], bound,
                                  device_kernels(cfg))[1]
         mgr.set_mesh_shape(None)
         reps.append(mgr.repartition("switch_b2", other))
         back = serve(other, False)
         reshards = list(mgr.pool.reshards)
         shut(mgr)
-        mesh_diffs = [max_diff(x, first) for x in on_mesh]
+        launches = K.read()       # the main path's; not the twin's below
+        # tokens re-routed on the mesh (an MoE's; none elsewhere) are
+        # counted and their rows' differences printed; every other row
+        # within LOGIT_RTOL of the largest logit
+        one_routes = routes["one device"][0][1]
+        moved = [rerouted(one_routes, log, at, tp)
+                 for at, log in routes["mesh"]]
+        rows_diff = [row_diffs(x, first) for x in on_mesh]
+        mesh_diffs = [d[~m].max().item() if m.numel() else d.max().item()
+                      for d, m in zip(rows_diff, moved)]
+        moved_rows = [int(m.sum()) for m in moved]
+        moved_diffs = [d[m].max().item() if m.any() else 0.0
+                       for d, m in zip(rows_diff, moved)]
         check(max(mesh_diffs) <= LOGIT_RTOL * scale,
-              f"phase 12b: mesh logits differ from one device's by "
-              f"{mesh_diffs} (> {LOGIT_RTOL} of {scale})")
-        check(torch.equal(back, first), "phase 12b: logits back on one "
-                                        "device differ from the first")
+              f"phase 12b {arch}: mesh logits differ from one device's by "
+              f"{mesh_diffs} (> {LOGIT_RTOL} of {scale}) on rows the mesh "
+              f"routed as one device")
+        check(all(bool(torch.isfinite(x).all()) for x in on_mesh),
+              f"phase 12b {arch}: non-finite logits on the mesh")
+        check(torch.equal(back, first), f"phase 12b {arch}: logits back on "
+                                        f"one device differ from the first")
         check([r.mesh_change for r in reps] == [True, False, True]
               and [(r.old_mesh, r.new_mesh) for r in reps[::2]]
               == [(None, SHARD_MESH), (SHARD_MESH, None)],
-              f"phase 12b: mesh transitions "
+              f"phase 12b {arch}: mesh transitions "
               f"{[(r.old_mesh, r.new_mesh) for r in reps]}")
         check(len(reshards) == 2 and all(r.moved_bytes == 0
                                          for r in reshards),
-              f"phase 12b: reshards {reshards}: a built pipeline's "
+              f"phase 12b {arch}: reshards {reshards}: a built pipeline's "
               f"transition must move no weight bytes")
         for r, rs in zip((reps[0], reps[2]), reshards):
             check(r.t_reshard == rs.t_wall and r.t_reshard >= 0.0,
-                  f"phase 12b: {r.strategy}'s t_reshard {r.t_reshard} is "
-                  f"not its ReshardReport's {rs.t_wall}")
-        profile = profile_transformer(cfg, seq=PROMPT)
+                  f"phase 12b {arch}: {r.strategy}'s t_reshard "
+                  f"{r.t_reshard} is not its ReshardReport's {rs.t_wall}")
+        profile = profile_transformer(cfg, seq=rows)
         alpha_beta = calibrate_mesh(profile, timings, split=split,
                                     mesh_shape=SHARD_MESH)
         for r in reps:
-            print(f"[shard] stateless {r.strategy}: split {r.old_split} -> "
-                  f"{r.new_split}, mesh {r.old_mesh} -> {r.new_mesh}, "
-                  f"downtime {r.downtime:.6f} s, t_reshard "
+            print(f"[shard] {arch} stateless {r.strategy}: split "
+                  f"{r.old_split} -> {r.new_split}, mesh {r.old_mesh} -> "
+                  f"{r.new_mesh}, downtime {r.downtime:.6f} s, t_reshard "
                   f"{r.t_reshard:.6f} s")
-        print(f"[shard] stateless: reshards {reshards}; max |logit diff| "
-              f"on the mesh {mesh_diffs} (max |logit| {scale:.3e}); request "
-              f"wall (edge + cloud, unscaled) ms {request_ms}; all-reduces a "
-              f"request {ar_request}; calibrate_mesh scales (alpha, beta) "
-              f"{alpha_beta} on {mapping}: fitted to walls with no link "
-              f"between the shards, not a tensor-parallel speed")
+        print(f"[shard] {arch} stateless: reshards {reshards}; max |logit "
+              f"diff| on the mesh {mesh_diffs} (max |logit| {scale:.3e}); "
+              f"tokens the mesh re-routed (MoE) {moved_rows} of {rows}, "
+              f"their rows' max |logit diff| {moved_diffs}; "
+              f"request wall (edge + cloud, unscaled) ms {request_ms}; "
+              f"all-reduces a request {ar_request}; calibrate_mesh scales "
+              f"(alpha, beta) {alpha_beta} on {mapping}: fitted to walls "
+              f"with no link between the shards, not a tensor-parallel "
+              f"speed; profiled request on the mesh: {prof_mesh}")
         del runner, first, on_mesh, back
         free_memory()
-
-        # --- 12c: the stateful pipeline -------------------------------
-        gclog.label = "qwen2.5-3b phase 12c"
-        kw = dict(split=split, net=NetworkModel(20.0), prompt_len=PROMPT,
-                  max_seq=MAX_SEQ, seed=seed, decode_impl="auto",
-                  attn_impl="kernel", device="cuda")
-        mgr, session = make_stateful_manager(cfg, params, **kw)
-        per_step = {False: expected(K, cfg, 0, L, "decode")}
-        mesh_step = expected(K, cfg, 0, split, "decode")
-        for name, n in scaled(expected(K, cfg, split, L, "decode"),
-                              tp).items():
-            mesh_step[name] += n
-        per_step[True] = mesh_step
-        logits_seen, step_ms = [], {"one device": [], "mesh": []}
-
-        def steps(n: int, mesh: bool):
-            for _ in range(n):
-                before = K.read()
-                logits, timing = mgr.serve(None)
-                got = K.since(before)
-                check(got == per_step[mesh], f"phase 12c: a decode step "
-                      f"(mesh {mesh}) launched {got}, want {per_step[mesh]}")
-                step_ms["mesh" if mesh else "one device"].append(
-                    (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
-                    * 1e3)
-                logits_seen.append(logits.float().cpu())
-
-        def state_bytes():
-            a = mgr.active
-            return sum(v.numel() * v.element_size() for v in
-                       session.subset(a._u_edge, a._u_all).values())
-
-        steps(SHARD_STEPS, False)
-        live = state_bytes()
-        mgr.set_mesh_shape(SHARD_MESH)
-        r1 = mgr.repartition("switch_b2", split)
-        moved1 = mgr.pool.reshards[-1].moved_bytes
-        ar0 = TP.all_reduce.calls
-        steps(SHARD_STEPS, True)
-        ar_step = (TP.all_reduce.calls - ar0) // SHARD_STEPS
-        _, prof_step_mesh = profile_step(
-            lambda: mgr.serve(None)[0], request_bound_ms(cfg, params, 1),
-            device_kernels(cfg))            # a step not in logits_seen
-        live_mesh = state_bytes()
-        mgr.set_mesh_shape(None)
-        r2 = mgr.repartition("switch_b2", split)
-        moved2 = mgr.pool.reshards[-1].moved_bytes
-        steps(SHARD_STEPS, False)
-        tokens = session.tokens.clone()
-        stateful_reshards = list(mgr.pool.reshards)
-        shut(mgr)
-        launches = K.read()       # the main path's; not the twin's below
-        check(r1.mesh_change and r1.new_mesh == SHARD_MESH
-              and r2.mesh_change and r2.old_mesh == SHARD_MESH
-              and r2.new_mesh is None,
-              f"phase 12c: transitions {(r1.old_mesh, r1.new_mesh)}, "
-              f"{(r2.old_mesh, r2.new_mesh)}")
-        check(moved1 == live and moved2 == live_mesh == live,
-              f"phase 12c: reshards moved {moved1} and {moved2} B, the "
-              f"live cloud-range state is {live} B")
-        # an unswitched session fed the same tokens; its step at the
-        # profiled mesh step's place is profiled too, and not compared
-        ref, _ = make_stateful_manager(cfg, params, **kw)
-        wants = []
-        for i in range(len(logits_seen) + 1):
-            feed = {"token": tokens[:, PROMPT + i:PROMPT + 1 + i]}
-            if i == 2 * SHARD_STEPS:
-                _, prof_step_one = profile_step(
-                    lambda: ref.serve(feed)[0],
-                    request_bound_ms(cfg, params, 1), device_kernels(cfg))
-            else:
-                wants.append(ref.serve(feed)[0].float().cpu())
-        shut(ref)
-        diffs = [max_diff(a, b) for a, b in zip(logits_seen, wants)]
-        agree = sum(int(a.argmax() == b.argmax())
-                    for a, b in zip(logits_seen, wants))
-        scale = max(w.abs().max().item() for w in wants)
-        check(max(diffs) <= LOGIT_RTOL * scale,
-              f"phase 12c: logits differ from the unswitched session's by "
-              f"{max(diffs)} (> {LOGIT_RTOL} of {scale})")
-        check(all(bool(torch.isfinite(x).all()) for x in logits_seen),
-              "phase 12c: non-finite logits")
+        f32 = moe_in_f32(cfg, params, prompt, tp) if cfg.moe is not None \
+            else None
+        t_reshard_build = reps[0].build_detail.t_reshard
         peak = torch.cuda.max_memory_allocated()
         devs = [torch.device(x) for x in mapping]
-        ar = {"step_calls": ar_step, "request_calls": ar_request,
-              "step_ms": all_reduce_ms((1, 1, cfg.d_model), devs, ar_step),
-              "request_ms": all_reduce_ms((1, PROMPT, cfg.d_model), devs,
+        ar = {"request_calls": ar_request,
+              "request_ms": all_reduce_ms((1, rows, cfg.d_model), devs,
                                           ar_request)}
-        t_reshard_build = reps[0].build_detail.t_reshard
-        med = {k: sorted(v)[len(v) // 2] for k, v in step_ms.items()}
-        print(f"[shard] stateful: switch_b2 onto {SHARD_MESH} moved "
-              f"{moved1} B in {r1.t_reshard:.6f} s, back moved {moved2} B "
-              f"in {r2.t_reshard:.6f} s (live cloud-range state {live} B); "
-              f"token agreement with the unswitched session {agree} of "
-              f"{len(diffs)}; max |logit diff| {max(diffs):.3e} (max |logit| "
-              f"{scale:.3e}); decode step wall (edge + cloud, unscaled) "
-              f"median ms {med}; all-reduces {ar}; peak device memory "
+        result = {"arch": arch, "num_layers": L, "mapping": mapping,
+                  "mesh": list(SHARD_MESH), "kernels": kern,
+                  "stateless": {"request_ms": request_ms,
+                                "logit_diff": mesh_diffs,
+                                "rerouted_rows": moved_rows,
+                                "rerouted_logit_diff": moved_diffs,
+                                "downtime_s": [(r.strategy, r.downtime)
+                                               for r in reps],
+                                "reshards": [vars(r) for r in reshards],
+                                "calibrate_mesh": list(alpha_beta),
+                                "build_t_reshard_s": t_reshard_build,
+                                "profiled_request_mesh": prof_mesh,
+                                "moe_f32": f32},
+                  "all_reduce": ar}
+        if stateful:
+            K.reset()
+            sf = phase_sharding_stateful(K, cfg, params, seed, gclog, split)
+            launches = {k: launches[k] + n
+                        for k, n in sf.pop("launches").items()}
+            ar["step_calls"] = sf.pop("step_all_reduces")
+            ar["step_ms"] = all_reduce_ms((1, 1, cfg.d_model), devs,
+                                          ar["step_calls"])
+            result["stateful"] = sf
+            peak = max(peak, sf["peak_device_bytes"])
+        print(f"[shard] {arch}: all-reduces {ar}; peak device memory "
               f"{peak} B; the stateless switch_b2's BuildReport.t_reshard "
               f"{t_reshard_build:.6f} s")
-        print(f"[shard] profiled decode step on the mesh: {prof_step_mesh}; "
-              f"on one device: {prof_step_one}; profiled request on the "
-              f"mesh: {prof_mesh}")
     finally:
         reset_mesh_devices()
     free_memory()
     wall = time.perf_counter() - t0
-    print(f"[shard] phase 12 took {wall:.1f} s")
-    return {"mapping": mapping, "mesh": list(SHARD_MESH), "kernels": kern,
-            "launches": launches, "wall_s": wall,
-            "stateless": {"request_ms": request_ms,
-                          "logit_diff": mesh_diffs,
-                          "downtime_s": [(r.strategy, r.downtime)
-                                         for r in reps],
-                          "reshards": [vars(r) for r in reshards],
-                          "calibrate_mesh": list(alpha_beta),
-                          "build_t_reshard_s": t_reshard_build,
-                          "profiled_request_mesh": prof_mesh},
-            "stateful": {"step_ms": step_ms, "step_ms_median": med,
-                         "moved_bytes": [moved1, moved2],
-                         "live_state_bytes": live,
-                         "t_reshard_s": [r1.t_reshard, r2.t_reshard],
-                         "reshards": [vars(r) for r in stateful_reshards],
-                         "token_agreement": [agree, len(diffs)],
-                         "max_logit_diff": max(diffs),
-                         "profiled_step_mesh": prof_step_mesh,
-                         "profiled_step_one_device": prof_step_one},
-            "all_reduce": ar, "peak_device_bytes": peak}
+    print(f"[shard] {arch}: phase 12 took {wall:.1f} s")
+    return dict(result, launches=launches, wall_s=wall,
+                peak_device_bytes=peak)
+
+
+def phase_sharding_stateful(K, cfg, params, seed, gclog: GcLog,
+                            split: int) -> dict:
+    """12c: the stateful pipeline (prompt ``PROMPT``, ``MAX_SEQ``):
+    ``SHARD_STEPS`` steps on one device, switch_b2 onto the mesh at the
+    same split, as many steps, back, as many again; each step's launches
+    and logits against an unswitched session fed the same tokens, each
+    transition moving exactly the live cloud-range state (KV, conv and
+    SSM state).  Launches are read before the twin runs."""
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.core.stateful import make_stateful_manager
+    from repro_torch.distributed import tp as TP
+
+    arch, L, tp = cfg.name, cfg.num_layers, SHARD_MESH[-1]
+    gclog.label = f"{arch} phase 12c"
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(split=split, net=NetworkModel(20.0), prompt_len=PROMPT,
+              max_seq=MAX_SEQ, seed=seed, decode_impl="auto",
+              attn_impl="kernel", device="cuda")
+    mgr, session = make_stateful_manager(cfg, params, **kw)
+    per_step = {False: expected(K, cfg, 0, L, "decode")}
+    mesh_step = expected(K, cfg, 0, split, "decode")
+    for name, n in scaled(expected(K, cfg, split, L, "decode"), tp).items():
+        mesh_step[name] += n
+    per_step[True] = mesh_step
+    logits_seen, step_ms = [], {"one device": [], "mesh": []}
+    step_routes = []          # (layers on the edge, the step's routings)
+
+    def steps(n: int, mesh: bool):
+        for _ in range(n):
+            before = K.read()
+            with recorded_routes([]) as log:
+                logits, timing = mgr.serve(None)
+            step_routes.append((split if mesh else L, log))
+            got = K.since(before)
+            check(got == per_step[mesh], f"phase 12c {arch}: a decode step "
+                  f"(mesh {mesh}) launched {got}, want {per_step[mesh]}")
+            step_ms["mesh" if mesh else "one device"].append(
+                (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
+                * 1e3)
+            logits_seen.append(logits.float().cpu())
+
+    def state_bytes():
+        a = mgr.active
+        return sum(v.numel() * v.element_size() for v in
+                   session.subset(a._u_edge, a._u_all).values())
+
+    steps(SHARD_STEPS, False)
+    live = state_bytes()
+    mgr.set_mesh_shape(SHARD_MESH)
+    r1 = mgr.repartition("switch_b2", split)
+    moved1 = mgr.pool.reshards[-1].moved_bytes
+    ar0 = TP.all_reduce.calls
+    steps(SHARD_STEPS, True)
+    ar_step = (TP.all_reduce.calls - ar0) // SHARD_STEPS
+    check(ar_step == all_reduces(cfg, split, L),
+          f"phase 12c {arch}: {ar_step} all-reduces a step, want "
+          f"{all_reduces(cfg, split, L)}")
+    _, prof_step_mesh = profile_step(
+        lambda: mgr.serve(None)[0], request_bound_ms(cfg, params, 1),
+        device_kernels(cfg))            # a step not in logits_seen
+    live_mesh = state_bytes()
+    mgr.set_mesh_shape(None)
+    r2 = mgr.repartition("switch_b2", split)
+    moved2 = mgr.pool.reshards[-1].moved_bytes
+    steps(SHARD_STEPS, False)
+    tokens = session.tokens.clone()
+    stateful_reshards = list(mgr.pool.reshards)
+    shut(mgr)
+    launches = K.read()       # the main path's; not the twin's below
+    check(r1.mesh_change and r1.new_mesh == SHARD_MESH
+          and r2.mesh_change and r2.old_mesh == SHARD_MESH
+          and r2.new_mesh is None,
+          f"phase 12c {arch}: transitions {(r1.old_mesh, r1.new_mesh)}, "
+          f"{(r2.old_mesh, r2.new_mesh)}")
+    check(moved1 == live and moved2 == live_mesh == live,
+          f"phase 12c {arch}: reshards moved {moved1} and {moved2} B, the "
+          f"live cloud-range state is {live} B")
+    # an unswitched session fed the same tokens; its step at the profiled
+    # mesh step's place is profiled too, and not compared
+    ref, _ = make_stateful_manager(cfg, params, **kw)
+    wants, moved = [], []
+    for i in range(len(logits_seen) + 1):
+        feed = {"token": tokens[:, PROMPT + i:PROMPT + 1 + i]}
+        if i == 2 * SHARD_STEPS:
+            _, prof_step_one = profile_step(
+                lambda: ref.serve(feed)[0],
+                request_bound_ms(cfg, params, 1), device_kernels(cfg))
+        else:
+            with recorded_routes([]) as log:
+                wants.append(ref.serve(feed)[0].float().cpu())
+            at, got = step_routes[len(moved)]
+            moved.append(bool(rerouted(log, got, at, tp).any()))
+    shut(ref)
+    diffs = [max_diff(a, b) for a, b in zip(logits_seen, wants)]
+    agree = sum(int(a.argmax() == b.argmax())
+                for a, b in zip(logits_seen, wants))
+    scale = max(w.abs().max().item() for w in wants)
+    # an MoE step whose token the mesh re-routed (a near-tie flipped by a
+    # bf16 rounding of the partial sums) is counted, its difference
+    # printed; every other step within LOGIT_RTOL of the largest logit
+    kept = [d for d, m in zip(diffs, moved) if not m]
+    moved_diffs = [d for d, m in zip(diffs, moved) if m]
+    check(max(kept) <= LOGIT_RTOL * scale,
+          f"phase 12c {arch}: logits differ from the unswitched session's "
+          f"by {max(kept)} (> {LOGIT_RTOL} of {scale}) on steps routed "
+          f"alike")
+    check(all(bool(torch.isfinite(x).all()) for x in logits_seen),
+          f"phase 12c {arch}: non-finite logits")
+    med = {k: sorted(v)[len(v) // 2] for k, v in step_ms.items()}
+    print(f"[shard] {arch} stateful: switch_b2 onto {SHARD_MESH} moved "
+          f"{moved1} B in {r1.t_reshard:.6f} s, back moved {moved2} B in "
+          f"{r2.t_reshard:.6f} s (live cloud-range state {live} B); token "
+          f"agreement with the unswitched session {agree} of {len(diffs)}; "
+          f"max |logit diff| {max(kept):.3e} (max |logit| {scale:.3e}); "
+          f"steps re-routed (MoE) {len(moved_diffs)}, their max |logit "
+          f"diff| {moved_diffs}; decode step wall (edge + cloud, "
+          f"unscaled) median ms {med}; all-reduces a step {ar_step}")
+    print(f"[shard] {arch} profiled decode step on the mesh: "
+          f"{prof_step_mesh}; on one device: {prof_step_one}")
+    return {"step_ms": step_ms, "step_ms_median": med,
+            "moved_bytes": [moved1, moved2], "live_state_bytes": live,
+            "t_reshard_s": [r1.t_reshard, r2.t_reshard],
+            "reshards": [vars(r) for r in stateful_reshards],
+            "token_agreement": [agree, len(diffs)],
+            "max_logit_diff": max(kept), "max_logit": scale,
+            "rerouted_steps": len(moved_diffs),
+            "rerouted_logit_diff": moved_diffs,
+            "profiled_step_mesh": prof_step_mesh,
+            "profiled_step_one_device": prof_step_one,
+            "step_all_reduces": ar_step, "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 
 # ---------------------------------------------------------------------------
@@ -3387,8 +3734,13 @@ def phase_whisper(K, seed, gclog: GcLog) -> dict:
                           dict(request, tokens=request["tokens"][:, :P]),
                           request["tokens"][:, P:], WHISPER_TOKENS)
     sa["cross_attention"] = cross_attention_share(cfg, sa["profiled_step"])
-    del params
+    free_memory()
+    # phase 12's stateless part on the mesh (the stateful path refuses
+    # whisper, as the reference's does); it keeps its own peak
     peak = torch.cuda.max_memory_allocated()
+    sh = phase_sharding(K, cfg, params, seed, gclog, stateful=False)
+    del params
+    peak = max(peak, torch.cuda.max_memory_allocated())
     free_memory()
     wall = time.perf_counter() - t0
     req, step = st["profiled_request"], sa["profiled_step"]
@@ -3406,7 +3758,7 @@ def phase_whisper(K, seed, gclog: GcLog) -> dict:
     return {"arch": WHISPER_ARCH, "num_layers": L,
             "encoder_layers": cfg.encoder.num_layers, "splits": splits,
             "weight_bytes": nbytes, "stateless": st, "standalone": sa,
-            "peak_device_bytes": peak, "wall_s": wall}
+            "sharding": sh, "peak_device_bytes": peak, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------

@@ -69,12 +69,10 @@ class EdgeCloudPipeline:
                  mesh_shape: Optional[tuple] = None):
         self.mesh_shape = tuple(int(d) for d in mesh_shape) \
             if mesh_shape else None
-        if self.mesh_shape is not None:
-            from repro_torch.distributed.tp import check_family
-            if not isinstance(runner, StageRunner):
-                raise NotImplementedError(f"no sharded cloud stage for "
-                                          f"{type(runner).__name__}")
-            check_family(runner.cfg)
+        if self.mesh_shape is not None \
+                and not isinstance(runner, StageRunner):
+            raise NotImplementedError(f"no sharded cloud stage for "
+                                      f"{type(runner).__name__}")
         self.runner = runner
         self.split = split
         self.net = net

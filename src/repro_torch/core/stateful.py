@@ -60,12 +60,13 @@ Where the port differs from the reference, and why:
   page-locked memory: an export's buffer is that memory itself, read-only
   (``HostBuffer``), and an import copies it to the card in one DMA
   (``_from_payload``); nothing is copied into fresh pageable pages.
-* **A sharded cloud stage** (``mesh_shape``; the ``dense`` and ``vlm``
-  families) runs on the tensor-parallel executor
-  (``repro_torch.distributed.tp``), its weights copied onto the mesh at
-  build.  The session then holds the cloud range's KV entries per shard
-  (``tp.ShardedTensor``); a transfer export gathers them to whole tensors
-  first, so the payload is the reference's.  Hand-offs run on the
+* **A sharded cloud stage** (``mesh_shape``; every family served here)
+  runs on the tensor-parallel executor (``repro_torch.distributed.tp``),
+  its weights copied onto the mesh at build.  The session then holds the
+  cloud range's state entries per shard (``tp.ShardedTensor``: KV by
+  heads, conv and SSM state by channel or head); a transfer export
+  gathers them to whole tensors first, so the payload is the
+  reference's.  Hand-offs run on the
   session's device (the recompute in its ``RecomputeArena``) and write
   whole tensors, which the next step places on the mesh; a mesh-changing
   activation moves the live cloud-range state itself (``reshard``).
@@ -693,11 +694,12 @@ class StatefulStageRunner:
 
     # -- on a mesh (the tensor-parallel executor) --------------------------
     def _make_tp_decode_fn(self, u0: int, u1: int):
-        layers = [idx for _, idx in self.units[u0:u1]]
+        units = [(u, _unit_state_keys(self.cfg, u))
+                 for u in self.units[u0:u1]]
 
         def fn(tpp, x, cache, pos):
-            return TP.decode_units(self.cfg, tpp, layers, x, cache, pos,
-                                   self._attend)
+            return TP.decode_units(self.cfg, tpp, units, x, cache, pos,
+                                   self._attend, ssm_impl=self._ssm_impl)
         return fn
 
     def _make_tp_head_fn(self):
@@ -722,7 +724,7 @@ class StatefulStageRunner:
         identity, fingerprint)``.  With ``mesh`` the decode and head
         callables run on the tensor-parallel executor over weights placed
         on it (``tp.place_params``): the decode stage takes the boundary
-        hidden and position replicated and each KV entry per shard (a
+        hidden and position replicated and each state entry per shard (a
         whole entry is placed first), and returns the replicated hidden
         the head takes.  The reference's ``shardings`` argument has no
         counterpart: the executor's layout places weights and state."""
@@ -1145,7 +1147,7 @@ class StatefulEdgeCloudPipeline:
     request.
 
     ``mesh_shape`` puts the cloud stage on a tensor-parallel mesh (a
-    ``DecodeSession``'s stream of the ``dense`` or ``vlm`` family): the
+    ``DecodeSession``'s stream; a slot pool's is refused): the
     weights are copied onto it at build (``BuildReport.t_reshard``), the
     cloud range's decode state lives per shard, and each step replicates
     the boundary hidden onto the mesh and brings the logits back to the
@@ -1160,7 +1162,6 @@ class StatefulEdgeCloudPipeline:
         self.mesh_shape = tuple(int(d) for d in mesh_shape) \
             if mesh_shape else None
         if self.mesh_shape is not None:
-            TP.check_family(runner.cfg)
             if not isinstance(session, DecodeSession):
                 raise NotImplementedError("a slot pool's (SessionManager) "
                                           "cloud stage on a mesh is not "
@@ -1265,7 +1266,7 @@ class StatefulEdgeCloudPipeline:
                 if isinstance(v, TP.ShardedTensor):
                     placed[k] = v.gather(s.device)
             else:
-                t = TP.place_entry(self.cloud_params, v)
+                t = TP.place_entry(self.cloud_params, k, v)
                 if t is not v:
                     placed[k] = t
         synchronize(s.device)

@@ -19,9 +19,10 @@ Logical axes:
 ``shard_tree`` cuts a tree into one tree of contiguous per-shard tensors
 per mesh position, each on its shard's device; ``gather_tree`` puts them
 back together.  They are how the tensor-parallel executor
-(``distributed.tp``) places the attention families' weights and decode
-state: its specs are ``param_rules``' except on the attention leaves,
-which it cuts by whole heads (``tp.param_specs``).
+(``distributed.tp``) places weights and decode state: its specs are
+``param_rules``' except on the attention leaves, which it cuts by whole
+heads, and on the Mamba projections whose column groups mean different
+things, which it cuts group by group (``Cat``; ``tp.param_specs``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,25 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+class Cat:
+    """The spec of a leaf whose last dim concatenates column groups with
+    specs of their own: ``Cat((width, spec), ...)``.  Each shard holds its
+    block of every group, concatenated in the groups' order."""
+
+    def __init__(self, *parts):
+        self.parts = tuple((int(w), spec) for w, spec in parts)
+
+    def offsets(self):
+        """``(offset, width, spec)`` of each group along the last dim."""
+        o = 0
+        for w, spec in self.parts:
+            yield o, w, spec
+            o += w
+
+    def __repr__(self) -> str:
+        return f"Cat{self.parts!r}"
 
 
 class ShardingDegraded(UserWarning):
@@ -376,6 +396,35 @@ def _by_path(tree) -> dict:
     return flat
 
 
+def _cut(t, spec, coords: dict, sizes: dict):
+    """The block of ``t`` the shard at ``coords`` holds under ``spec``."""
+    if isinstance(spec, Cat):
+        return torch.cat([_cut(t[..., o:o + w], s, coords, sizes)
+                          for o, w, s in spec.offsets()], dim=-1)
+    return t[_block(spec, tuple(t.shape), coords, sizes)]
+
+
+def _place(out, part, spec, coords: dict, sizes: dict, done: set,
+           at: tuple = ()) -> None:
+    """Copy ``part``, the block of the shard at ``coords`` under
+    ``spec``, into ``out``, the whole leaf, unless a replica of it was
+    copied already (``done``)."""
+    if isinstance(spec, Cat):
+        col = 0
+        for o, w, s in spec.offsets():
+            dst = out[..., o:o + w]
+            n = len(range(w)[_block(s, tuple(dst.shape), coords, sizes)[-1]])
+            _place(dst, part[..., col:col + n], s, coords, sizes, done,
+                   at + (o,))
+            col += n
+        return
+    block = _block(spec, tuple(out.shape), coords, sizes)
+    key = at + tuple((b.start, b.stop) for b in block)
+    if key not in done:
+        done.add(key)
+        out[block] = part
+
+
 def shard_tree(tree, specs, mesh: CloudMesh) -> list:
     """One tree per mesh position (row-major): each leaf's block under its
     spec, as a contiguous tensor of its own on the shard's device."""
@@ -384,8 +433,7 @@ def shard_tree(tree, specs, mesh: CloudMesh) -> list:
 
     def one(coords, dev):
         def cut(name, t):
-            block = t[_block(specs_by_path[name], tuple(t.shape), coords,
-                             sizes)]
+            block = _cut(t, specs_by_path[name], coords, sizes)
             return torch.empty(block.shape, dtype=t.dtype,
                                device=dev).copy_(block)
         return map_with_path(cut, tree)
@@ -408,11 +456,7 @@ def gather_tree(shards: list, specs, mesh: CloudMesh, device, like) -> Any:
         out = torch.empty(shape, dtype=t0.dtype, device=device)
         done = set()
         for coords, part in zip(positions, parts):
-            block = _block(spec, shape, coords, sizes)
-            at = tuple((b.start, b.stop) for b in block)
-            if at not in done:             # else a replica already copied
-                done.add(at)
-                out[block] = part[name]
+            _place(out, part[name], spec, coords, sizes, done)
         return out
     return map_with_path(put, shards[0])
 

@@ -370,30 +370,22 @@ def moe_capacity(tokens: int, top_k: int, num_experts: int,
     return min(c, tokens)
 
 
-def moe_layer(params, x, *, top_k, capacity_factor=1.25, aux_coef=0.01):
-    """Sort-based capacity-dispatch MoE (``repro.models.layers.moe_layer``)
-    in one dispatch group, the reference's layout off a mesh.
-
-    x: (B, S, D); expert weights stacked (E, D, F)/(E, F, D); the router
-    (D, E) in f32.  Routing in f32: softmax, then the top ``top_k`` experts
-    of each token (ties to the lower expert id, as ``jax.lax.top_k``),
-    gates renormalised by ``max(sum, 1e-9)``.  The ``T * K`` assignments
-    are stably sorted by expert id, so an expert over its capacity
-    (``moe_capacity``) drops the same assignments as the reference: the
-    ones of the latest tokens.  Returns ``(y, aux_loss)``, the
-    Switch-style load-balance loss.
-
-    The experts run in one of two layouts that compute the same function:
-    the reference's ``(E, C, D)`` slots (every expert's weights read once)
-    or, when there are at most half as many assignments as experts (a
-    decode step), each assignment against its own expert's weights
-    (only the chosen experts' weights are read)."""
+def moe_route(router, x, *, top_k, capacity_factor):
+    """``moe_layer``'s routing of ``x`` (B, S, D) over the router's (D, E)
+    experts, in f32: softmax, the top ``top_k`` experts of each token
+    (ties to the lower expert id, as ``jax.lax.top_k``), gates
+    renormalised by ``max(sum, 1e-9)``, and each of the ``T * K``
+    assignments' slot in its expert's capacity (``moe_capacity``, from
+    every expert's count): stably sorted by expert id, so an expert over
+    its capacity drops the reference's assignments, the ones of the
+    latest tokens.  A dict of the dispatch metadata ``moe_experts``
+    reads, with ``weight`` each assignment's gate (0 where dropped) in
+    ``x``'s dtype."""
     B, S, D = x.shape
-    E = params["w_gate"].shape[0]
+    E = router.shape[-1]
     T, K = B * S, top_k
     dev = x.device
-    xf = x.reshape(T, D)
-    logits = xf.float() @ params["router"].float()           # (T, E)
+    logits = x.reshape(T, D).float() @ router.float()        # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, idx = gate_vals[:, :K], idx[:, :K]            # (T, K)
@@ -402,47 +394,101 @@ def moe_layer(params, x, *, top_k, capacity_factor=1.25, aux_coef=0.01):
 
     # dispatch metadata: each assignment's slot in its expert's capacity
     flat_e = idx.reshape(-1)                                 # (T*K,)
-    flat_tok = torch.arange(T * K, device=dev) // K
     order = torch.sort(flat_e, stable=True).indices
     counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * K, device=dev) - starts[flat_e[order]]
     pos_slot = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
     keep = pos_slot < C
-    weight = (gate_vals.reshape(-1) * keep).to(x.dtype)[:, None]
+    return {"probs": probs, "idx": idx, "flat_e": flat_e,
+            "flat_tok": torch.arange(T * K, device=dev) // K,
+            "order": order, "counts": counts, "starts": starts,
+            "pos_slot": pos_slot, "keep": keep, "capacity": C,
+            "weight": (gate_vals.reshape(-1) * keep).to(x.dtype)[:, None]}
+
+
+def moe_experts(params, x, route, *, first: int = 0):
+    """The routed experts' output for ``x`` (B, S, D) under ``route``
+    (``moe_route``): each token's gated sum over its kept assignments.
+    ``params`` stacks the weights of experts ``[first, first + E')``
+    (all of them by default): an assignment to any other expert adds
+    nothing, so the shards of an expert-parallel mesh each give their
+    experts' part of the sum.
+
+    The experts run in one of two layouts that compute the same function:
+    the reference's ``(E', C, D)`` slots (every expert's weights read
+    once) or, when there are at most half as many assignments as experts
+    in all (a decode step), each assignment against its own expert's
+    weights (only the chosen experts' weights are read)."""
+    B, S, D = x.shape
+    El = params["w_gate"].shape[0]
+    E = route["counts"].shape[0]
+    T, K = B * S, route["idx"].shape[-1]
+    dev = x.device
+    xf = x.reshape(T, D)
+    flat_e, keep, weight = route["flat_e"], route["keep"], route["weight"]
+    flat_tok, C = route["flat_tok"], route["capacity"]
+    e_idx = flat_e
+    if El != E:
+        local = flat_e - first
+        mine = (local >= 0) & (local < El)
+        e_idx = torch.where(mine, local, torch.zeros_like(local))
+        keep = keep & mine
+        weight = weight * mine[:, None]
 
     if 2 * T * K <= E:
         # each assignment against its own expert's weights
         xt = xf[flat_tok][:, None]                           # (T*K, 1, D)
-        h = F.silu(torch.bmm(xt, params["w_gate"][flat_e])) \
-            * torch.bmm(xt, params["w_up"][flat_e])
-        contrib = torch.bmm(h, params["w_down"][flat_e])[:, 0] * weight
+        h = F.silu(torch.bmm(xt, params["w_gate"][e_idx])) \
+            * torch.bmm(xt, params["w_up"][e_idx])
+        contrib = torch.bmm(h, params["w_down"][e_idx])[:, 0] * weight
     else:
         # the reference's (E, C, D) slots, gathered (no big scatter)
-        st = flat_tok[order]
-        sel = starts[:, None] + torch.arange(C, device=dev)[None, :]
+        counts = route["counts"][first:first + El]
+        st = flat_tok[route["order"]]
+        sel = route["starts"][first:first + El, None] \
+            + torch.arange(C, device=dev)[None, :]
         valid = torch.arange(C, device=dev)[None, :] \
             < torch.clamp(counts, max=C)[:, None]
         gather_tok = torch.where(valid, st[sel.clamp(0, T * K - 1)],
                                  torch.full_like(sel, T))
         xpad = torch.cat([xf, xf.new_zeros((1, D))], 0)
-        xe = xpad[gather_tok]                                # (E, C, D)
+        xe = xpad[gather_tok]                                # (E', C, D)
         h = F.silu(torch.bmm(xe, params["w_gate"])) \
             * torch.bmm(xe, params["w_up"])
-        ye = torch.bmm(h, params["w_down"])                  # (E, C, D)
+        ye = torch.bmm(h, params["w_down"])                  # (E', C, D)
         ye = F.pad(ye, (0, 0, 0, 1))                         # trash slot
-        pos_c = torch.where(keep, pos_slot, torch.full_like(pos_slot, C))
-        contrib = ye[flat_e, pos_c] * weight                 # (T*K, D)
-    y = contrib.reshape(T, K, D).sum(1)
+        pos_c = torch.where(keep, route["pos_slot"],
+                            torch.full_like(route["pos_slot"], C))
+        contrib = ye[e_idx, pos_c] * weight                  # (T*K, D)
+    return contrib.reshape(T, K, D).sum(1).reshape(B, S, D)
+
+
+def moe_shared(params, x):
+    """The shared experts' SiLU-gated MLP."""
+    shared = F.silu(x @ params["shared_w_gate"]) \
+        * (x @ params["shared_w_up"])
+    return shared @ params["shared_w_down"]
+
+
+def moe_layer(params, x, *, top_k, capacity_factor=1.25, aux_coef=0.01):
+    """Sort-based capacity-dispatch MoE (``repro.models.layers.moe_layer``)
+    in one dispatch group, the reference's layout off a mesh.
+
+    x: (B, S, D); expert weights stacked (E, D, F)/(E, F, D); the router
+    (D, E) in f32.  Routing as ``moe_route``, the experts as
+    ``moe_experts``, plus the shared experts where the layer has them.
+    Returns ``(y, aux_loss)``, the Switch-style load-balance loss."""
+    route = moe_route(params["router"], x, top_k=top_k,
+                      capacity_factor=capacity_factor)
+    y = moe_experts(params, x, route)
 
     # load-balance aux loss (Switch-style)
+    probs, idx = route["probs"], route["idx"]
+    E, T = probs.shape[-1], probs.shape[0]
     me = probs.mean(0)
     top1 = torch.bincount(idx[:, 0], minlength=E).float() / T
     aux = aux_coef * E * torch.sum(me * top1)
-
-    y = y.reshape(B, S, D)
     if "shared_w_gate" in params:
-        shared = F.silu(x @ params["shared_w_gate"]) \
-            * (x @ params["shared_w_up"])
-        y = y + shared @ params["shared_w_down"]
+        y = y + moe_shared(params, x)
     return y, aux

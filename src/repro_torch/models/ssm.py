@@ -128,27 +128,41 @@ def init_mamba1(cfg, normal, uniform, dtype, device, lead=()):
     }
 
 
-def mamba1_block(params, x, cache=None, *, cfg, impl="kernel"):
-    """x: (B,S,D).  cache: None or {'conv': (B,K-1,Di), 'ssm': (B,Di,N)}.
-
-    Returns (y, new_cache)."""
-    s = cfg.ssm
-    xz = x @ params["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)
+def mamba1_in(params, x, cache=None):
+    """A mamba1 block up to ``x_proj``: ``(xc, z, new_conv)``, the
+    convolved channels after SiLU and the gate's half of ``in_proj``.
+    The channels are ``in_proj``'s, ``conv_w``'s: all of ``d_inner``, or a
+    tensor-parallel shard's own (``distributed.tp``)."""
+    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     xc, new_conv = causal_conv1d(xin, params["conv_w"], params["conv_b"],
                                  conv_state)
-    xc = F.silu(xc)
-    dbc = xc @ params["x_proj"]
+    return F.silu(xc), z, new_conv
+
+
+def mamba1_out(params, dbc, xc, z, h0=None, *, cfg, impl="kernel"):
+    """A mamba1 block from ``dbc = xc @ x_proj`` (summed over every
+    channel) on: dt, the scan from ``h0``, the skip and the gate, and
+    ``out_proj`` over the channels ``xc`` holds.  Returns ``(out, h)``."""
+    s = cfg.ssm
     dt, Bc, Cc = torch.split(dbc, [s.dt_rank, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.float() @ params["dt_proj"].float()
                     + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    h0 = cache["ssm"] if cache is not None else None
     y, h = mamba1_scan(dt.to(xc.dtype), Bc, Cc, xc, A, h0=h0, impl=impl)
     y = y.float() + xc.float() * params["D"]
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ params["out_proj"]
+    y = (y * F.silu(z.float())).to(z.dtype)
+    return y @ params["out_proj"], h
+
+
+def mamba1_block(params, x, cache=None, *, cfg, impl="kernel"):
+    """x: (B,S,D).  cache: None or {'conv': (B,K-1,Di), 'ssm': (B,Di,N)}.
+
+    Returns (y, new_cache)."""
+    xc, z, new_conv = mamba1_in(params, x, cache)
+    h0 = cache["ssm"] if cache is not None else None
+    out, h = mamba1_out(params, xc @ params["x_proj"], xc, z, h0, cfg=cfg,
+                        impl=impl)
     return out, {"conv": new_conv, "ssm": h}
 
 
@@ -174,13 +188,15 @@ def init_mamba2(cfg, normal, dtype, device, lead=()):
     }
 
 
-def mamba2_block(params, x, cache=None, *, cfg, impl="kernel"):
-    """Mamba-2 (SSD, n_groups=1).  cache: {'conv': (B,K-1,Di+2N),
-    'ssm': (B,H,P,N)}.  The gated RMSNorm (eps 1e-5) as the reference
-    writes it."""
+def mamba2_gated(params, x, cache=None, *, cfg, impl="kernel"):
+    """A Mamba-2 block (SSD, n_groups=1) up to its gated RMSNorm:
+    ``(y, new_cache)`` with ``y = ssd(x) * silu(z)`` over the heads the
+    weights hold (all of them, or a tensor-parallel shard's own, with the
+    shared B and C columns: ``distributed.tp``).  cache: {'conv':
+    (B,K-1,Di+2N), 'ssm': (B,H,P,N)}."""
     s = cfg.ssm
-    di = cfg.d_inner
-    H = di // s.head_dim
+    di = params["out_proj"].shape[-2]
+    H = params["A_log"].shape[-1]
     P, N = s.head_dim, s.d_state
     zxbcdt = x @ params["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
@@ -197,11 +213,23 @@ def mamba2_block(params, x, cache=None, *, cfg, impl="kernel"):
     y, h = mamba2_scan(dt, Bc, Cc, xh, A, h0=h0, impl=impl)
     y = y + xh.float() * params["D"][:, None]
     y = y.reshape(B_, S, di).to(x.dtype)
-    y = y * F.silu(z)
-    var = y.float().square().mean(-1, keepdim=True)
+    return y * F.silu(z), {"conv": new_conv, "ssm": h}
+
+
+def mamba2_out(params, y, var):
+    """The gated RMSNorm (eps 1e-5) of ``y`` given ``var``, the mean of
+    its squares over all of ``d_inner`` (f32, (B, S, 1)), and
+    ``out_proj``, as the reference writes them."""
     y = (y * torch.rsqrt(var + 1e-5).to(y.dtype)) * params["norm"]
-    out = y @ params["out_proj"]
-    return out, {"conv": new_conv, "ssm": h}
+    return y @ params["out_proj"]
+
+
+def mamba2_block(params, x, cache=None, *, cfg, impl="kernel"):
+    """Mamba-2 (SSD, n_groups=1): ``mamba2_gated``, then ``mamba2_out``
+    with the mean of squares over ``d_inner``."""
+    y, new_cache = mamba2_gated(params, x, cache, cfg=cfg, impl=impl)
+    var = y.float().square().mean(-1, keepdim=True)
+    return mamba2_out(params, y, var), new_cache
 
 
 def ssm_block(cfg, params, x, cache: Optional[dict] = None, *,

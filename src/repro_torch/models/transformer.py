@@ -124,25 +124,30 @@ def attn_block_full(cfg, p, x, rope_cs, *, impl, causal=True, window=None,
     return x + ff, (k, v), aux
 
 
-def cross_block_full(cfg, p, x, enc_kv, *, impl):
-    """Cross-attention sublayer (whisper's decoder): the normed hidden's
-    queries against the encoder's ``enc_kv``, non-causal."""
+def cross_out_full(cfg, p, x, enc_kv, *, impl):
+    """Whisper's cross-attention sublayer up to its residual add: the
+    normed hidden's queries against the encoder's ``enc_kv``, non-causal,
+    times ``wo`` (the heads the weights hold)."""
     h = _apply_norm(cfg, p["ln_x"], x)
     B, S, _ = h.shape
-    q = (h @ p["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = (h @ p["xattn"]["wq"]).reshape(B, S, -1, cfg.head_dim)
     ck, cv = enc_kv
     att = Lyr.attention(q, ck, cv, causal=False, impl=impl)
-    return x + att.reshape(B, S, -1) @ p["xattn"]["wo"]
+    return att.reshape(B, S, -1) @ p["xattn"]["wo"]
+
+
+def cross_block_full(cfg, p, x, enc_kv, *, impl):
+    """Cross-attention sublayer (whisper's decoder) with its residual."""
+    return x + cross_out_full(cfg, p, x, enc_kv, impl=impl)
 
 
 def _enc_cross_kv(cfg, p, enc_out):
     """K/V of the encoder output under a decoder layer's cross-attention
-    weights, sequence-major ``(B, T_enc, KH, hd)``."""
+    weights, sequence-major ``(B, T_enc, KH, hd)`` (KH: the heads the
+    weights hold)."""
     B, S, _ = enc_out.shape
-    ck = (enc_out @ p["xattn"]["wk"]).reshape(B, S, cfg.num_kv_heads,
-                                              cfg.head_dim)
-    cv = (enc_out @ p["xattn"]["wv"]).reshape(B, S, cfg.num_kv_heads,
-                                              cfg.head_dim)
+    ck = (enc_out @ p["xattn"]["wk"]).reshape(B, S, -1, cfg.head_dim)
+    cv = (enc_out @ p["xattn"]["wv"]).reshape(B, S, -1, cfg.head_dim)
     return ck, cv
 
 

@@ -962,3 +962,122 @@ def test_executor_on_the_card_matches_one_device(cuda, dtype):
         mgr.close()
     finally:
         reset_mesh_devices()
+
+
+# one shard's kernels on the 2-way mesh of the ssm, hybrid, moe and audio
+# families: falcon-mamba-7b's 4096 of 8192 channels, zamba2-7b's 56 of 112
+# Mamba-2 heads
+@pytest.mark.parametrize("S", [1, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scans_at_a_shards_shapes(cuda, S, dtype):
+    """mamba1_scan over a shard's 4096 channels (N 16) and ssd_scan over
+    its 56 heads (P 64, N 64): a decode step from a state and the
+    prompt."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dt)
+    Di, N = 4096, 16
+    dbc = rand(1, S, 256 + 2 * N)
+    args = (torch.nn.functional.softplus(rand(1, S, Di, dt=torch.float32))
+            .to(dtype), dbc[..., 256:256 + N], dbc[..., 256 + N:],
+            rand(1, S, Di), -torch.exp(rand(Di, N, dt=torch.float32) * 0.2))
+    h0 = rand(1, Di, N, dt=torch.float32) if S == 1 else None
+    y, h = MS.mamba1_scan(*args, h0=h0)
+    yw, hw = MS.mamba1_scan_plain(*args, h0=h0)
+    _hold(y, yw, dtype)
+    _hold(h, hw, dtype)
+    H, P, N = 56, 64, 64
+    xbc = rand(1, S, H * P + 2 * N)
+    args = (torch.nn.functional.softplus(rand(1, S, H, dt=torch.float32)),
+            xbc[..., H * P:H * P + N], xbc[..., H * P + N:],
+            xbc[..., :H * P].reshape(1, S, H, P),
+            -torch.exp(rand(H, dt=torch.float32) * 0.3))
+    h0 = rand(1, H, P, N, dt=torch.float32) if S == 1 else None
+    y, h = SD.ssd_scan(*args, h0=h0)
+    yw, hw = SD.ssd_scan_plain(*args, h0=h0)
+    _hold(y, yw, dtype)
+    _hold(h, hw, dtype)
+
+
+# (H, KH, D, full-sequence calls (Sq, Sk, causal), decodes): zamba2-7b's
+# shared attention (16 / 16 of 112), qwen2-moe-a2.7b's (8 / 8 of 128),
+# whisper-medium's decoder and cross attention (8 / 8 of 64; stateless)
+SHARD_ATTENTION = [(16, 16, 112, [(1024, 1024, True)], True),
+                   (8, 8, 128, [(1024, 1024, True)], True),
+                   (8, 8, 64, [(448, 448, True), (448, 1500, False)], False)]
+
+
+@pytest.mark.parametrize("H,KH,D,calls,decodes", SHARD_ATTENTION)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_at_the_new_shards_shapes(cuda, H, KH, D, calls, decodes,
+                                            dtype):
+    if decodes:
+        q, k, v = _fd_inputs(cuda, 1, H, KH, D, dtype, seed=14, S=2048)
+        for pos in (64, 1024, 2048):
+            pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+            _fd_hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
+                     FD.flash_decode_attention_plain(q, k, v, pos=pos_t))
+    for Sq, Sk, causal in calls:
+        _fa_compare(cuda, 1, Sq, Sk, H, KH, D, dtype, causal=causal)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_layers_on_the_mesh_match_one_device(cuda, arch, dtype):
+    """Reduced falcon-mamba-7b (channel-parallel Mamba-1) and zamba2-7b
+    (head-parallel Mamba-2 and its shared block) with their cloud stage at
+    tp 2 on ``["cuda:0", "cuda:0"]`` against one device's forward at every
+    split (bf16: 1% of the largest logit; f32: 1e-4), the scans on the
+    kernels; in f32, a decode stream moved onto the mesh and back keeps
+    the unswitched stream's tokens, its scans on the kernels."""
+    from repro_torch.core.pipeline import EdgeCloudPipeline
+    from repro_torch.launch.mesh import reset_mesh_devices, set_mesh_devices
+    cfg = get_config(arch).reduced()
+    scan = MS.mamba1_scan if cfg.ssm.kind == "mamba1" else SD.ssd_scan
+    params = init_model(cfg, device=cuda, dtype=dtype, seed=4)
+    runner = StageRunner(cfg, params, attn_impl="kernel", device=cuda)
+    gen = torch.Generator().manual_seed(5)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (1, 64),
+                                      generator=gen).to(cuda)}
+    mono = runner.run_units(inputs, 0, runner.num_units)["logits"].float()
+    tol = 1e-2 * mono.abs().max().item() if dtype == torch.bfloat16 \
+        else 1e-4
+    set_mesh_devices(["cuda:0"] * 2)
+    try:
+        for split in range(runner.num_units - 1):
+            pipe = EdgeCloudPipeline(runner, split, NetworkModel(20.0),
+                                     mesh_shape=(2,))
+            pipe.build(inputs, cold=False)
+            before = scan.launches
+            got, _ = pipe.process(inputs)
+            torch.cuda.synchronize()
+            cloud = cfg.num_layers - split
+            assert scan.launches == before + split + 2 * cloud
+            assert (got.float() - mono).abs().max().item() <= tol, split
+            pipe.close()
+        if dtype == torch.bfloat16:
+            return          # greedy tokens in bf16 can flip on a rounding
+        kw = dict(split=1, net=NetworkModel(50.0), prompt_len=8,
+                  max_seq=32, seed=3, device=cuda, dtype=dtype)
+        mgr, sess = make_stateful_manager(cfg, **kw)
+        for _ in range(6):
+            mgr.serve(None)
+        want = sess.tokens.clone()
+        mgr.close()
+        mgr, sess = make_stateful_manager(cfg, **kw)
+        mgr.serve(None)
+        mgr.set_mesh_shape((2,))
+        assert mgr.repartition("switch_b2", 1).mesh_change
+        before = scan.launches
+        for _ in range(3):
+            mgr.serve(None)
+        assert scan.launches == before + 3 * (1 + 2)
+        mgr.set_mesh_shape(None)
+        assert mgr.repartition("switch_b2", 1).mesh_change
+        for _ in range(2):
+            mgr.serve(None)
+        assert torch.equal(sess.tokens, want)
+        mgr.close()
+    finally:
+        reset_mesh_devices()

@@ -6,8 +6,8 @@ head is replicated on the shards that read it, and at tp 8, where the
 attention degrades to replicated compute with a warning; the stateless
 mesh repartition at every split; the stateful round trip onto a 2-way
 mesh and back; a transfer hand-off out of a mesh pipeline that the
-reference's ``validate_payload`` takes; the families whose sharded stage
-comes later raising."""
+reference's ``validate_payload`` takes; CNNs and slot pools refused on a
+mesh.  The other families' mesh stages: ``test_torch_tp_families.py``."""
 import dataclasses
 import warnings
 
@@ -31,14 +31,12 @@ from repro_torch.core.pipeline import EdgeCloudPipeline  # noqa: E402
 from repro_torch.core.stages import CnnStageRunner, StageRunner  # noqa: E402
 from repro_torch.core.stateful import (HANDOFF_META_KEY,  # noqa: E402
                                        StatefulEdgeCloudPipeline,
-                                       StatefulStageRunner,
                                        make_stateful_manager)
 from repro_torch.core.switching import PipelineManager  # noqa: E402
 from repro_torch.distributed import tp as TP  # noqa: E402
 from repro_torch.distributed.sharding import ShardingDegraded  # noqa: E402
 from repro_torch.launch.mesh import (reset_mesh_devices,  # noqa: E402
                                      set_mesh_devices)
-from repro_torch.models.transformer import init_model  # noqa: E402
 from repro_torch.params import from_numpy  # noqa: E402
 from repro_torch.serving import make_session_manager  # noqa: E402
 
@@ -265,23 +263,6 @@ def test_mesh_transfer_payload_is_the_references():
     finally:
         jm.close()
         tm.close()
-
-
-@pytest.mark.parametrize("arch,slice_name", [
-    ("qwen2-moe-a2.7b", "expert-parallel MoE"),
-    ("falcon-mamba-7b", "Mamba-1"), ("zamba2-7b", "Mamba-2"),
-    ("whisper-medium", "whisper's encoder")])
-def test_later_families_raise_on_a_mesh(arch, slice_name):
-    cfg = dataclasses.replace(tget(arch).reduced(), num_layers=2)
-    params = init_model(cfg, device="cpu")
-    runner = StageRunner(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        EdgeCloudPipeline(runner, 1, NetworkModel(20.0), mesh_shape=(2,))
-    if cfg.family != "audio":
-        sr = StatefulStageRunner(cfg, params, max_seq=16, device="cpu")
-        with pytest.raises(NotImplementedError, match=slice_name):
-            StatefulEdgeCloudPipeline(sr, 1, NetworkModel(20.0),
-                                      session=None, mesh_shape=(2,))
 
 
 def test_mesh_refuses_cnns_and_slot_pools():
