@@ -152,7 +152,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                outages, and every frame's logits bit-equal to an
                unswitched pipeline's; prints each stream's downtime,
                drops, p50/p99 and memory over the initial (Table I)
-               beside the paper's CPU-testbed downtimes.
+               beside the paper's CPU-testbed downtimes.  Each stream
+               draws its weight copies from two copies' worth of memory
+               the allocator holds before it (``reserve_cache``): a
+               standby's ``cudaMalloc`` on the build worker stalled the
+               serving thread's forwards.
 9. window    — mixtral-8x22b at full width (d_model 6144, 48 heads of 128
                over 8 KV heads, 8 experts of 16384 top-2, window 4096),
                2 of its 56 layers (cut for memory), bf16, routed without
@@ -247,7 +251,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                ``calibrate_mesh``'s scales beside the mapping (with both
                shards on one card they are fitted to walls with no link
                in them: not a tensor-parallel speed).
-13. report   — prints the script's wall, the ``kernels`` JSON line, the
+13. counter  — (a) ``repro_torch.launch.dryrun``'s count of qwen2.5-3b's
+               train_4k, prefill_32k and decode_32k steps on the 16 x 16
+               production mesh, on meta tensors in this process, priced on
+               the H100 spec: prints each pair's compute, memory and
+               collective terms.  (b) after qwen2.5-3b's phases 4-7, with
+               its weights loaded: ``distributed.op_analysis``'s counter
+               around its full-width decode step and its 1024-token
+               stateless request on the kernel route; checks the counter
+               saw exactly as many calls of each kernel as its launch
+               counter rose by, the counted bytes at least the weights'
+               and the counted flops positive; prints the counted flops
+               and bytes against ``model_flops_estimate``, the counted
+               bound beside the hand-computed one, and the roofline
+               shares of the profiled busy time and the unprofiled wall.
+14. report   — prints the script's wall, the ``kernels`` JSON line, the
                card's nvidia-smi line, and as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -2681,6 +2699,95 @@ def split_decisions(profile) -> dict:
     return out
 
 
+def reserve_cache(nbytes: int) -> None:
+    """Leave ``nbytes`` free in the caching allocator's cache: one block
+    allocated and freed at once.  Allocations that follow are carved out
+    of it instead of calling ``cudaMalloc``."""
+    block = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    del block
+
+
+def cnn_stream(cfg, params, strategy: str, frames: list, index: dict,
+               ckpt: str, fast: int, profile, scripted, want: list,
+               on_manager=None, reserve: bool = True) -> tuple:
+    """One phase-8c stream: ``CNN_FPS`` frames a second over ``CNN_TRACE``
+    for ``CNN_S`` s of virtual time under ``strategy``, from split
+    ``fast``, with a ``NeukonfigController`` on ``profile`` (or, where
+    ``scripted`` names two splits, switches scripted between them at the
+    trace's change points).  ``on_manager(mgr)`` is called once the
+    manager is made, before the stream (a probe's hook).
+
+    With ``reserve`` the stream's weight copies come out of memory the
+    allocator holds before the stream (``reserve_cache``, two copies):
+    a switch_a re-arms its standby by copying the weights on the build
+    worker, and a ``cudaMalloc`` there under the allocator's lock
+    stalled the serving thread's forward for up to ~240 ms, four times
+    that on the edge's clock, and dropped frames (ROADMAP Queue C item
+    14; PERF.md).  This is faithful to the stream: switch_a holds two
+    copies (Table I's 2x) whenever it serves, and a deployment sizes its
+    memory before it serves; the frames, switches, builds on the worker
+    and the memory reported are as they were, only where the bytes come
+    from moves before the stream.  Returns ``(row, timeline, seen)``:
+    the stream's readings, its ``ServiceTimeline`` and every forward's
+    ``(frame index, logits)``."""
+    from repro_torch.core.controller import NeukonfigController
+    from repro_torch.core.downtime import crosscheck_timeline
+    from repro_torch.core.network import BandwidthTrace
+    from repro_torch.core.stages import CnnStageRunner, param_bytes
+    from repro_torch.core.switching import PipelineManager
+    from repro_torch.serving import ServingEngine, VirtualClock
+
+    times = [i / CNN_FPS for i in range(int(CNN_S * CNN_FPS))]
+    source = [(t, {"image": frames[i % CNN_FRAMES]})
+              for i, t in enumerate(times)]
+    trace = BandwidthTrace(steps=CNN_TRACE)
+    mgr = PipelineManager(
+        CnnStageRunner(cfg, params, device="cuda"), split=fast,
+        net=trace.at(0.0), sample_inputs={"image": frames[0]},
+        warm_standbys=True, checkpoint_path=ckpt)
+    mgr.pool.executor.submit(lambda: None).wait()
+    if on_manager is not None:
+        on_manager(mgr)
+    ctl = None
+    if scripted is None:
+        ctl = NeukonfigController(mgr, profile, trace, strategy=strategy)
+        eng = ServingEngine(mgr, clock=VirtualClock(), controller=ctl)
+    else:
+        mgr.get_strategy(strategy).prepare(
+            mgr.pool, candidate_splits=scripted[::-1])
+        eng = ServingEngine(mgr, clock=VirtualClock())
+        for i, (t, bw) in enumerate(CNN_TRACE[1:]):
+            eng.schedule_switch(t, strategy, scripted[(i + 1) % 2],
+                                bandwidth_mbps=bw)
+    if reserve:
+        reserve_cache(2 * param_bytes(params))
+    seen = []
+    sw = time.perf_counter()
+    with recorded_frames(seen, index):
+        tl = eng.run(iter(source), duration=CNN_S)
+        mgr.drain()
+    wall = time.perf_counter() - sw
+    mem = mgr.memory_report()
+    shut(mgr)
+    summ = tl.summary()
+    xc = [x for x in crosscheck_timeline(tl, fps=CNN_FPS, service_time=0.0)
+          if x["full_outage"]]
+    worst = max((max_diff(lg, want[i]) for i, lg in seen), default=None)
+    row = {"downtime_s": tl.downtime(),
+           "switch_drops": tl.switch_drops(wake=1.0),
+           "arrived": summ["arrived"], "dropped": summ["dropped"],
+           "p50_ms": summ["p50_ms"], "p99_ms": summ["p99_ms"],
+           "windows": [[w.t_start, w.duration, w.old_split, w.new_split]
+                       for w in tl.windows],
+           "memory_x": mem["total_bytes"] / max(mem["initial_bytes"], 1),
+           "memory": mem, "forwards_checked": len(seen),
+           "max_logit_diff": worst,
+           "crosscheck": [[x["measured_dropped"], x["predicted_dropped"]]
+                          for x in xc],
+           "wall_s": wall}
+    return row, tl, seen
+
+
 def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
     """``arch`` (vgg19, mobilenetv2) at the published 224 px, batch 1,
     f32 (TF32 off), random weights from a generator seeded with ``seed``:
@@ -2707,15 +2814,11 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
 
     from repro_torch.checkpoint import save_pytree
     from repro_torch.configs import get_config
-    from repro_torch.core.controller import NeukonfigController
-    from repro_torch.core.downtime import crosscheck_timeline
     from repro_torch.core.hardware import EDGE_SPEC, H100
     from repro_torch.core.network import BandwidthTrace
     from repro_torch.core.pipeline import EdgeCloudPipeline
     from repro_torch.core.profiler import profile_cnn
     from repro_torch.core.stages import CnnStageRunner, param_bytes
-    from repro_torch.core.switching import PipelineManager
-    from repro_torch.serving import ServingEngine, VirtualClock
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2800,9 +2903,6 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
              f"change points"))
 
     # --- c. the live stream ------------------------------------------------------
-    times = [i / CNN_FPS for i in range(int(CNN_S * CNN_FPS))]
-    source = [(t, {"image": frames[i % CNN_FRAMES]})
-              for i, t in enumerate(times)]
     twin = EdgeCloudPipeline(CnnStageRunner(cfg, params, device="cuda"),
                              fast, BandwidthTrace(steps=CNN_TRACE).at(0.0))
     twin.build({"image": frames[0]}, cold=False)
@@ -2818,52 +2918,10 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
         out["checkpoint_write_s"] = time.perf_counter() - sw
         for strategy in CNN_STRATEGIES:
             gclog.label = f"{arch} phase 8c {strategy}"
-            trace = BandwidthTrace(steps=CNN_TRACE)
-            mgr = PipelineManager(
-                CnnStageRunner(cfg, params, device="cuda"), split=fast,
-                net=trace.at(0.0), sample_inputs={"image": frames[0]},
-                warm_standbys=True, checkpoint_path=ckpt)
-            mgr.pool.executor.submit(lambda: None).wait()
-            ctl = None
-            if scripted is None:
-                ctl = NeukonfigController(mgr, profile, trace,
-                                          strategy=strategy)
-                eng = ServingEngine(mgr, clock=VirtualClock(),
-                                    controller=ctl)
-            else:
-                mgr.get_strategy(strategy).prepare(
-                    mgr.pool, candidate_splits=scripted[::-1])
-                eng = ServingEngine(mgr, clock=VirtualClock())
-                for i, (t, bw) in enumerate(CNN_TRACE[1:]):
-                    eng.schedule_switch(t, strategy, scripted[(i + 1) % 2],
-                                        bandwidth_mbps=bw)
-            seen = []
-            sw = time.perf_counter()
-            with recorded_frames(seen, index):
-                tl = eng.run(iter(source), duration=CNN_S)
-                mgr.drain()
-            wall = time.perf_counter() - sw
-            mem = mgr.memory_report()
-            shut(mgr)
-            summ = tl.summary()
-            xc = [x for x in crosscheck_timeline(tl, fps=CNN_FPS,
-                                                 service_time=0.0)
-                  if x["full_outage"]]
-            worst = max((max_diff(lg, want[i]) for i, lg in seen),
-                        default=None)
-            row = {"downtime_s": tl.downtime(),
-                   "switch_drops": tl.switch_drops(wake=1.0),
-                   "arrived": summ["arrived"], "dropped": summ["dropped"],
-                   "p50_ms": summ["p50_ms"], "p99_ms": summ["p99_ms"],
-                   "windows": [[w.t_start, w.duration, w.old_split,
-                                w.new_split] for w in tl.windows],
-                   "memory_x": mem["total_bytes"] / max(
-                       mem["initial_bytes"], 1),
-                   "memory": mem, "forwards_checked": len(seen),
-                   "max_logit_diff": worst,
-                   "crosscheck": [[x["measured_dropped"],
-                                   x["predicted_dropped"]] for x in xc],
-                   "wall_s": wall}
+            row, tl, seen = cnn_stream(cfg, params, strategy, frames, index,
+                                       ckpt, fast, profile, scripted, want)
+            worst, mem = row["max_logit_diff"], row["memory"]
+            wall = row["wall_s"]
             streams[strategy] = row
             print(f"[cnn] {arch} 8c {strategy}: measured downtime "
                   f"{row['downtime_s']:.6f} s over {len(tl.windows)} "
@@ -2884,7 +2942,7 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
             check(all(abs(m - p) <= 2 for m, p in row["crosscheck"]),
                   f"{arch} {strategy}: outage drops measured/predicted "
                   f"{row['crosscheck']}")
-            del mgr, eng, ctl, tl, seen
+            del tl, seen
             free_memory()
     finally:
         os.remove(ckpt)
@@ -2906,7 +2964,7 @@ def phase_cnn(K: Counts, arch: str, seed: int, gclog: GcLog) -> dict:
           + "; the paper's CPU testbed, not a target: "
           + ", ".join(f"{k} {v}" for k, v in PAPER_DOWNTIME.items()))
     out.update({"streams": streams, "launches": launches})
-    del runner, params, frames, img, source, want, mono
+    del runner, params, frames, img, want, mono
     peak = torch.cuda.max_memory_allocated()
     free_memory()
     left = torch.cuda.memory_allocated()
@@ -2997,7 +3055,11 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
                                   stateless_request(cfg, seed + 2), extra,
                                   MAX_SEQ)
             free_memory()
-        sv = sh = None
+        sv = sh = ct = None
+        if arch == COUNT_ARCH:
+            gclog.label = f"{arch} phase 13b"
+            ct = phase_counter(K, cfg, params, seed)
+            free_memory()
         if arch == SERVE_ARCH:
             t7 = time.perf_counter()
             sv = phase_serving(K, cfg, params, ckpt, seed, gclog)
@@ -3033,6 +3095,8 @@ def run_model(K, arch, seed, gclog: GcLog) -> dict:
         out["sharding"] = sh
     if sa is not None:
         out["standalone"] = sa
+    if ct is not None:
+        out["counter"] = ct
     return out
 
 
@@ -4149,6 +4213,160 @@ def phase_training(K, seed, gclog: GcLog) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run on the meta device, and the op counter on the card
+# ---------------------------------------------------------------------------
+
+COUNT_ARCH = "qwen2.5-3b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+COUNT_REPS = 10                     # unprofiled calls, the median taken
+
+
+def phase_dryrun() -> dict:
+    """13a: ``launch.dryrun``'s count of ``COUNT_ARCH`` at each of
+    ``DRYRUN_SHAPES`` on the 16 x 16 production mesh, in this process on
+    meta tensors (nothing on the card), priced on the H100 spec; prints
+    the three terms and checks each finite and the step's flops and
+    bytes positive."""
+    from repro_torch.launch.dryrun import analyse, count_pair
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in DRYRUN_SHAPES:
+        meta = count_pair(COUNT_ARCH, name, multi_pod=False)
+        rl = analyse(COUNT_ARCH, name, meta)
+        terms = (rl.t_compute, rl.t_memory, rl.t_collective)
+        check(rl.hlo_flops > 0 and rl.hlo_bytes > 0
+              and all(math.isfinite(t) and t > 0 for t in terms),
+              f"dry run {COUNT_ARCH} {name}: flops {rl.hlo_flops}, bytes "
+              f"{rl.hlo_bytes}, terms {terms}")
+        out[name] = {"t_compute_ms": rl.t_compute * 1e3,
+                     "t_memory_ms": rl.t_memory * 1e3,
+                     "t_collective_ms": rl.t_collective * 1e3,
+                     "bottleneck": rl.bottleneck,
+                     "useful_flops_frac": rl.useful_flops_frac,
+                     "per_device_bytes": rl.per_device_bytes,
+                     "device_spec": rl.device_spec,
+                     "count_s": meta["count_s"]}
+        print(f"[dryrun] {COUNT_ARCH} {name} on {rl.mesh} ({rl.chips} "
+              f"chips, {rl.device_spec}): compute "
+              f"{out[name]['t_compute_ms']:.3f} ms, memory "
+              f"{out[name]['t_memory_ms']:.3f} ms, collective "
+              f"{out[name]['t_collective_ms']:.3f} ms [{rl.bottleneck}]; "
+              f"model flops / counted {rl.useful_flops_frac:.3f}; "
+              f"{(rl.per_device_bytes or 0) / 2 ** 30:.2f} GiB a device; "
+              f"counted in {meta['count_s']:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase 13a took {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_counter(K: Counts, cfg, params, seed: int) -> dict:
+    """13b: ``distributed.op_analysis``'s counter around ``COUNT_ARCH``'s
+    full-width decode step (against the cache of phase 6's 1024-token
+    request, ``max_seq`` ``MAX_SEQ``) and around that request through
+    every unit, both on the kernel route, on the weights phases 4-6
+    loaded.  Checks, for each: the counter saw exactly as many calls of
+    each kernel as its launch counter rose by, the counted bytes are at
+    least the weights' (each read once), the counted flops are positive
+    and the logits finite.  Prints the counted flops and bytes, their
+    ratio to ``model_flops_estimate``, the counted bound beside
+    ``request_bound_ms``'s, and ``kernel_roofline`` of the profiled busy
+    time and of the unprofiled median wall against the H100."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.stages import StageRunner, tree_leaves
+    from repro_torch.distributed.op_analysis import OpCounter
+    from repro_torch.distributed.roofline import (kernel_roofline,
+                                                  model_flops_estimate)
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    prompt = stateless_request(cfg, seed + 2)
+    rows = prompt["tokens"].shape[1]
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    runner = StageRunner(cfg, params, attn_impl="kernel", device="cuda")
+    full = runner.stage_executable(0, runner.num_units, params, prompt)
+    _, cache = T.prefill(cfg, params, prompt, max_seq=MAX_SEQ,
+                         attn_impl="kernel")
+    token = prompt["tokens"][:, -1:]
+    pos = int(cache["pos"])
+    calls = {
+        "decode_step": (lambda: T.decode_step(cfg, params, token, cache,
+                                              attn_impl="kernel")[0],
+                        InputShape("step", MAX_SEQ, 1, "decode"),
+                        request_bound_ms(cfg, params, 1, extra_bytes=sum(
+                            cache[k][:, :, :, :pos + 1].numel()
+                            * cache[k].element_size() for k in ("k", "v")))),
+        "request": (lambda: full(params, prompt)["logits"],
+                    InputShape("request", rows, 1, "prefill"),
+                    request_bound_ms(cfg, params, rows,
+                                     attention_flops(cfg, rows,
+                                                     cfg.num_layers)))}
+    out = {}
+    for name, (fn, shape, hand_ms) in calls.items():
+        fn()                                    # warm
+        torch.cuda.synchronize()
+        before = K.read()
+        with OpCounter() as c:
+            logits = fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in K.since(before).items() if v}
+        tot = c.totals()
+        check(tot["kernel_calls"] == launched,
+              f"13b {name}: the counter saw kernel calls "
+              f"{tot['kernel_calls']}, the launch counters rose by "
+              f"{launched}")
+        check(tot["bytes"] >= weights, f"13b {name}: counted bytes "
+              f"{tot['bytes']} under the weights' {weights}")
+        check(tot["flops"] > 0, f"13b {name}: counted no flops")
+        check(bool(torch.isfinite(logits).all()),
+              f"13b {name}: non-finite logits")
+        walls = []
+        for _ in range(COUNT_REPS):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+        wall = sorted(walls)[len(walls) // 2]
+        _, prof = profile_step(fn, hand_ms, device_kernels(cfg))
+        busy = prof.get("device_busy_ms")
+        check(busy is not None and busy > 0,
+              f"13b {name}: the profiler read no device time: {prof}")
+        cost = {"flops": tot["flops"], "bytes accessed": tot["bytes"]}
+        kr_busy = kernel_roofline(f"{name} busy", wall_s=busy / 1e3,
+                                  cost=cost)
+        kr_wall = kernel_roofline(f"{name} wall", wall_s=wall, cost=cost)
+        mf = model_flops_estimate(cfg, shape)
+        bound_ms = max(tot["flops"] / H100.flops,
+                       tot["bytes"] / H100.hbm_bw) * 1e3
+        out[name] = {"counted": {k: tot[k] for k in (
+            "flops", "bytes", "ops", "kernel_calls", "kernel_flops",
+            "kernel_bytes", "peak_live_bytes")},
+            "launched": launched, "weights_bytes": weights,
+            "model_flops": mf, "flops_over_model": tot["flops"] / mf,
+            "counted_bound_ms": bound_ms, "hand_bound_ms": hand_ms,
+            "wall_ms": wall * 1e3, "busy_ms": busy,
+            "roofline_busy": kr_busy.to_dict(),
+            "roofline_wall": kr_wall.to_dict()}
+        print(f"[counter] {cfg.name} {name} ({rows} rows, pos {pos}): "
+              f"counted {tot['flops']:.4e} flops, {tot['bytes']:.4e} B "
+              f"over {tot['ops']} operators (weights {weights} B), kernel "
+              f"calls {tot['kernel_calls']} = launches; flops over "
+              f"model_flops_estimate {tot['flops'] / mf:.4f}; counted "
+              f"bound {bound_ms:.4f} ms beside the hand-computed "
+              f"{hand_ms:.4f}; busy {busy:.3f} ms: "
+              f"{kr_busy.flops_frac:.4f} of the bf16 peak, "
+              f"{kr_busy.bw_frac:.4f} of HBM [{kr_busy.bound}]; "
+              f"unprofiled median wall {wall * 1e3:.3f} ms: "
+              f"{kr_wall.flops_frac:.4f}, {kr_wall.bw_frac:.4f}")
+    del cache, runner, full
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[counter] phase 13b took {out['wall_s']:.1f} s")
+    return out
+
+
 def free_memory() -> None:
     """Return what the last phase's objects held to the card: collect
     their reference cycles, then empty PyTorch's cache."""
@@ -4214,6 +4432,10 @@ def main() -> None:
     whisper = phase_whisper(K, args.seed, gclog)
     # phase 11: training qwen2.5-3b
     training = phase_training(K, args.seed, gclog)
+    # phase 13a: the dry run on the meta device (13b ran with phase 4-6's
+    # qwen2.5-3b)
+    gclog.label = "phase 13a"
+    dryrun = phase_dryrun()
     check("jax" not in sys.modules, "the port imported jax")
     paths = [(f"{m['arch']} {path}", m[path]["launches"])
              for m in models + [whisper]
@@ -4227,7 +4449,7 @@ def main() -> None:
         row["launches_by_path"] = by_path
         check(row["launches"] > 0, f"{name} never launched on a main path")
 
-    # phase 13: report
+    # phase 14: report
     wall = time.perf_counter() - t_start
     print(f"[done] the whole script took {wall:.1f} s; garbage "
           f"collections {gclog.summary()}; flash_decode device-time traces "
@@ -4235,7 +4457,8 @@ def main() -> None:
     print(json.dumps({"kernels": list(rows.values()), "build_s": t_build,
                       "wall_s": wall, "decode_traces": DECODE_TRACES,
                       "models": models, "cnn": cnns, "window": window,
-                      "whisper": whisper, "training": training}))
+                      "whisper": whisper, "training": training,
+                      "dryrun": dryrun}))
 
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,4 +3,5 @@ from repro_torch.configs.base import (
     MoEConfig, SSMConfig,
 )
 from repro_torch.configs.registry import (ALL_ARCHS, ASSIGNED_ARCHS,
-                                         PAPER_ARCHS, get_config, get_shape)
+                                         PAPER_ARCHS, get_config, get_shape,
+                                         pair_is_runnable)

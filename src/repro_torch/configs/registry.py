@@ -42,3 +42,22 @@ def get_config(name: str) -> Union[ArchConfig, CNNConfig]:
 
 def get_shape(name: str) -> InputShape:
     return INPUT_SHAPES[name]
+
+
+def pair_is_runnable(arch: str, shape: str) -> tuple[bool, str]:
+    """Whether (arch, shape) is part of the 39-pair dry-run matrix (the
+    reference's ``pair_is_runnable``): ``(runnable, note)``."""
+    cfg = get_config(arch)
+    if isinstance(cfg, CNNConfig):
+        return False, "cnn: paper-figure model, not part of the assigned matrix"
+    if shape == "long_500k":
+        if cfg.name == "whisper-medium":
+            return False, ("skipped: whisper decoder context <=448 by "
+                           "construction (DESIGN.md s4)")
+        if not cfg.supports_long_context():
+            return False, "skipped: pure full attention (DESIGN.md s4)"
+        if cfg.long_context_window is not None \
+                and cfg.sliding_window is None \
+                and cfg.family not in ("ssm", "hybrid"):
+            return True, "[swa-variant]"
+    return True, ""

@@ -403,6 +403,10 @@ class PipelinePool:
         report = pipe.build(self.sample_inputs, cold=cold,
                             reload_from=reload_from)
         with self._lock:
+            # the link may have changed while this pipeline was built off
+            # the lock: ``set_network`` reached only the entries that had
+            # landed, so the new one takes the pool's link as it lands
+            pipe.net = self.net
             replaced = self._entries.get(key)
             if replaced is not None:
                 # rebuilding the active key orphans the old active object the

@@ -80,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.op_analysis import counted_collective
 from repro_torch.distributed.sharding import (Cat, P, ShardingDegraded,
                                               gather_tree, map_with_path,
                                               param_rules, shard_tree)
@@ -391,11 +392,13 @@ def whole(t, device) -> torch.Tensor:
 # collectives
 # ---------------------------------------------------------------------------
 
+@counted_collective("all-reduce")
 def all_reduce(parts: Sequence[torch.Tensor],
                devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """Sum the shards' partials in shard order on the first shard's
     device and copy the sum back to each shard (counted in
-    ``all_reduce.calls``)."""
+    ``all_reduce.calls``; an ``op_analysis.OpCounter`` reads the call and
+    the sum's bytes)."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(devices[0])

@@ -38,6 +38,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.op_analysis import counted_kernel
+
 BLOCK_Q = 64                # query rows a work item (kBQ in the .cu)
 BLOCK_K = 64                # keys a shared-memory tile (kBK in the .cu)
 CONSUMERS = 2               # bf16: work items a block (kConsumers)
@@ -222,14 +224,25 @@ def _check_launchable(q, k, v) -> None:
         raise ValueError("sequence lengths must fit in 32 bits")
 
 
+def work(q, k, v, *, causal=True, window=None, q_offset=0):
+    """``(flops, bytes)`` of one call: ``bound_flops`` and
+    ``bound_bytes``, what ``distributed.op_analysis`` counts for it."""
+    return (bound_flops(q, k, causal=causal, window=window,
+                        q_offset=q_offset), bound_bytes(q, k))
+
+
+@counted_kernel(work)
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q: (B, Sq, H, D); k/v SEQUENCE-MAJOR (B, Sk, KH, D).  Returns
     (B, Sq, H, D) in q's dtype.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel (counted in ``flash_attention.launches``) on the current
-    stream, or raises: there is no fallback."""
+    stream, or raises: there is no fallback.  Meta tensors (a dry run's
+    shapes) give the output's shape and launch nothing."""
     _check(q, k, v, window, q_offset)
+    if q.device.type == "meta" and k.is_meta and v.is_meta:
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

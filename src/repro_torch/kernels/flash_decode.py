@@ -35,6 +35,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.op_analysis import counted_kernel
+
 ALIGN_K = 16                # a slice starts at a multiple of this many
                             # keys (kAlign in the .cu)
 TARGET_BLOCKS = 256         # blocks a call aims at: two an SM of 132
@@ -87,16 +89,36 @@ def _scale_log2(D: int) -> float:
     return float(np.float32(math.log2(math.e) / math.sqrt(D)))
 
 
+def live_keys(q: torch.Tensor, k_cache: torch.Tensor, pos) -> int:
+    """Live keys summed over the batch rows.  ``pos`` on the meta device
+    (a dry run's shapes, no values) counts every row of the cache, a
+    decode step against a full cache."""
+    B, S = q.shape[0], k_cache.shape[2]
+    if isinstance(pos, torch.Tensor) and pos.is_meta:
+        return B * S
+    p = torch.as_tensor(pos).reshape(-1).cpu().clamp(0, S)
+    return int(p.sum()) * (B if p.numel() == 1 else 1)
+
+
 def bound_bytes(q: torch.Tensor, k_cache: torch.Tensor, pos) -> int:
     """Bytes the function must move: the valid prefix of both caches read
     once, q read once, the output written once."""
-    B, _, H, D = q.shape
-    S = k_cache.shape[2]
-    KH = k_cache.shape[1]
-    p = torch.as_tensor(pos).reshape(-1).cpu().clamp(0, S)
-    keys = int(p.sum()) * (B if p.numel() == 1 else 1)
-    return 2 * KH * keys * D * k_cache.element_size() \
-        + 2 * q.numel() * q.element_size()
+    D, KH = q.shape[3], k_cache.shape[1]
+    return 2 * KH * live_keys(q, k_cache, pos) * D \
+        * k_cache.element_size() + 2 * q.numel() * q.element_size()
+
+
+def bound_flops(q: torch.Tensor, k_cache: torch.Tensor, pos) -> int:
+    """Operations the function needs: ``4 * D`` a live key and query head
+    (a multiply and an add in each of q k^T and p v)."""
+    _, _, H, D = q.shape
+    return 4 * H * D * live_keys(q, k_cache, pos)
+
+
+def work(q, k_cache, v_cache, *, pos):
+    """``(flops, bytes)`` of one call: ``bound_flops`` and
+    ``bound_bytes``, what ``distributed.op_analysis`` counts for it."""
+    return bound_flops(q, k_cache, pos), bound_bytes(q, k_cache, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +208,18 @@ def _pos_buffer(pos, B: int, device) -> Tuple[torch.Tensor, int]:
     return buf, int(buf.numel() > 1)
 
 
+@counted_kernel(work)
 def flash_decode_attention(q, k_cache, v_cache, *, pos):
     """q: (B, 1, H, D); k/v_cache HEADS-MAJOR (B, KH, S, D); pos: count of
     valid entries, scalar or ``(B,)``.  Returns (B, 1, H, D).
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel (one launch, counted in ``flash_decode_attention.launches``) on
-    the current stream, or raises: there is no fallback."""
+    the current stream, or raises: there is no fallback.  Meta tensors (a
+    dry run's shapes) give the output's shape and launch nothing."""
     _check(q, k_cache, v_cache)
+    if q.is_meta and k_cache.is_meta and v_cache.is_meta:
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_cache, v_cache, pos=pos)
     if q.device.type != "cuda" or k_cache.device != q.device \

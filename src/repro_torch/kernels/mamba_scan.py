@@ -37,6 +37,8 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.distributed.op_analysis import counted_kernel
+
 CHUNK = 64                  # steps a chunk (kL in the .cu)
 TILE_S = 32                 # time steps staged a tile (kTS in the .cu)
 CHANNELS = 64               # channels a chunk block (kC)
@@ -190,17 +192,30 @@ def _check_launchable(dt, Bc, Cc, x, A, h0) -> None:
                          f"under 65536 (grid dimensions)")
 
 
+def work(dt, Bc, Cc, x, A, h0=None):
+    """``(flops, bytes)`` of one call: ``bound_flops`` (the recurrence's
+    f32 operations) and ``bound_bytes``, what ``distributed.op_analysis``
+    counts for it."""
+    return bound_flops(x, Bc), bound_bytes(dt, Bc, x, h0 is not None)
+
+
+@counted_kernel(work)
 def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     """dt/x: (B, S, Di); Bc/Cc: (B, S, N); A: (Di, N); h0: (B, Di, N) or
     None.  Returns (y (B, S, Di) in x's dtype, h (B, Di, N) f32).
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel (counted in ``mamba1_scan.launches``) on the current stream, or
-    raises: there is no fallback."""
+    raises: there is no fallback.  Meta tensors (a dry run's shapes) give
+    the outputs' shapes and launch nothing."""
     _check(dt, Bc, Cc, x, A, h0)
+    tensors = (dt, Bc, Cc, x, A) + (() if h0 is None else (h0,))
+    if all(t.is_meta for t in tensors):
+        B, S, Di = x.shape
+        return torch.empty_like(x), torch.empty(
+            (B, Di, Bc.shape[2]), dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return mamba1_scan_plain(dt, Bc, Cc, x, A, h0)
-    tensors = (dt, Bc, Cc, x, A) + (() if h0 is None else (h0,))
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"dt, Bc, Cc, x, A and h0 must lie on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")

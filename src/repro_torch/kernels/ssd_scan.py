@@ -38,6 +38,8 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.distributed.op_analysis import counted_kernel
+
 THREADS = 256               # sequential kernel's threads (kThreads)
 CHUNK = 64                  # steps a chunk (kL in the .cu)
 STEP_ROWS = 8               # decode step: rows of P a block (kStepRows)
@@ -207,6 +209,13 @@ def _check_launchable(dt, Bc, Cc, x, A, h0) -> None:
         raise ValueError("S and B * H must fit in 32 bits")
 
 
+def work(dt, Bc, Cc, x, A, h0=None):
+    """``(flops, bytes)`` of one call: ``bound_flops`` and
+    ``bound_bytes``, what ``distributed.op_analysis`` counts for it."""
+    return bound_flops(x, Bc), bound_bytes(dt, Bc, x, h0 is not None)
+
+
+@counted_kernel(work)
 def ssd_scan(dt, Bc, Cc, x, A, h0=None):
     """dt: (B, S, H); Bc/Cc: (B, S, N); x: (B, S, H, P); A: (H,); h0:
     (B, H, P, N) or None.  Returns (y (B, S, H, P) in x's dtype,
@@ -214,11 +223,16 @@ def ssd_scan(dt, Bc, Cc, x, A, h0=None):
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel (counted in ``ssd_scan.launches``) on the current stream, or
-    raises: there is no fallback."""
+    raises: there is no fallback.  Meta tensors (a dry run's shapes) give
+    the outputs' shapes and launch nothing."""
     _check(dt, Bc, Cc, x, A, h0)
+    tensors = (dt, Bc, Cc, x, A) + (() if h0 is None else (h0,))
+    if all(t.is_meta for t in tensors):
+        B, S, H, P = x.shape
+        return torch.empty_like(x), torch.empty(
+            (B, H, P, Bc.shape[2]), dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return ssd_scan_plain(dt, Bc, Cc, x, A, h0)
-    tensors = (dt, Bc, Cc, x, A) + (() if h0 is None else (h0,))
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"dt, Bc, Cc, x, A and h0 must lie on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")

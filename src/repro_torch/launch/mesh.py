@@ -13,8 +13,9 @@ of the reference's fake-device flag
 shard ``i`` onto the ``i``-th listed device, so ``["cpu"] * 8`` runs an
 8-way mesh on the CPU and ``["cuda:0"] * 2`` a 2-way mesh on one card.
 Nothing maps several shards onto one device unless that setting says so.
-``reset_mesh_devices`` clears it.  The reference's
-``make_production_mesh`` (a TPU pod) has no counterpart.
+``reset_mesh_devices`` clears it.  ``make_production_mesh`` is the
+reference's production mesh as shapes only: every shard on the meta
+device, for the dry run (``launch.dryrun``) to price.
 """
 from __future__ import annotations
 
@@ -109,3 +110,24 @@ def make_host_mesh(device="cuda") -> CloudMesh:
     """A 1-device ``(data, model)`` mesh on ``device`` (the card unless the
     caller names the CPU)."""
     return CloudMesh(("data", "model"), (1, 1), (resolve_device(device),))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> CloudMesh:
+    """The reference's production meshes, shapes and axes only: one pod
+    ``(16, 16)`` as ``("data", "model")`` (256 chips), two
+    ``(2, 16, 16)`` as ``("pod", "data", "model")`` (512), the pod axis
+    composing with data parallelism.  Every shard lies on the meta
+    device: the dry run prices the mesh, nothing runs on it.
+
+    On H100s a 16-way ``"model"`` axis spans two 8-card NVLink domains,
+    so its collectives partly cross the slower network between them:
+    the collective term the dry run prices at ``NVLINK_BW`` is a lower
+    bound.  Serving meshes stay ``make_cloud_mesh``'s, at most two
+    axes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for d in shape:
+        n *= d
+    return CloudMesh(axes, shape, (torch.device("meta"),) * n)
+

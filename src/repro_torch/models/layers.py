@@ -370,6 +370,15 @@ def moe_capacity(tokens: int, top_k: int, num_experts: int,
     return min(c, tokens)
 
 
+def expert_counts(e: torch.Tensor, E: int) -> torch.Tensor:
+    """How many entries of the int64 ``e`` name each of ``E`` experts:
+    ``torch.bincount(e, minlength=E)`` as a scatter-add of ones into ``E``
+    zeros, which, unlike ``bincount``, has a meta kernel (a dry run counts
+    a step on meta tensors).  Integer sums: exact in any order."""
+    return torch.zeros(E, dtype=torch.int64, device=e.device).scatter_add_(
+        0, e, torch.ones_like(e))
+
+
 def moe_route(router, x, *, top_k, capacity_factor):
     """``moe_layer``'s routing of ``x`` (B, S, D) over the router's (D, E)
     experts, in f32: softmax, the top ``top_k`` experts of each token
@@ -395,7 +404,7 @@ def moe_route(router, x, *, top_k, capacity_factor):
     # dispatch metadata: each assignment's slot in its expert's capacity
     flat_e = idx.reshape(-1)                                 # (T*K,)
     order = torch.sort(flat_e, stable=True).indices
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * K, device=dev) - starts[flat_e[order]]
     pos_slot = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
@@ -487,7 +496,7 @@ def moe_layer(params, x, *, top_k, capacity_factor=1.25, aux_coef=0.01):
     probs, idx = route["probs"], route["idx"]
     E, T = probs.shape[-1], probs.shape[0]
     me = probs.mean(0)
-    top1 = torch.bincount(idx[:, 0], minlength=E).float() / T
+    top1 = expert_counts(idx[:, 0], E).float() / T
     aux = aux_coef * E * torch.sum(me * top1)
     if "shared_w_gate" in params:
         y = y + moe_shared(params, x)

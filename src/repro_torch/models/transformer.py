@@ -265,18 +265,25 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     generator on ``device`` seeded with ``seed`` is made.  The numbers
     differ from JAX's for the same seed (another generator): tests that
     compare the packages convert one set of weights with
-    ``repro_torch.params`` instead."""
+    ``repro_torch.params`` instead.  On ``device="meta"`` the tree has the
+    same shapes and dtypes and no storage, and nothing is drawn (the
+    counterpart of ``jax.eval_shape(init_model)``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    if generator is None:
+    meta = dev.type == "meta"
+    if generator is None and not meta:
         generator = torch.Generator(device=dev).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
 
     def normal(*shape, std=0.02, dtype=dtype):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
         t = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
         return t.mul_(std)
 
     def uniform(*shape):
+        if meta:
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.rand(shape, generator=generator, dtype=torch.float32,
                           device=dev)
 

@@ -155,8 +155,14 @@ def test_refusals():
         FA.flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="q_offset"):
         FA.flash_attention(q, k, v, q_offset=-1)
+    # meta tensors (a dry run's shapes) give the output's shape and launch
+    # nothing; a mix of devices is refused, not handed to the plain version
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.is_meta and out.shape == q.shape
+    assert FA.flash_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        FA.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        FA.flash_attention(q.to("meta"), k, v)
     # what the kernel itself refuses (checked before any launch)
     FA._check_launchable(q, k, v)
     for D in (24, 256):

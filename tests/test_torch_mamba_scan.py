@@ -179,11 +179,14 @@ def test_kernel_launch_refusals_and_plan():
     with pytest.raises(ValueError, match="empty"):
         MS._check_launchable(torch.zeros(0, 4, 64), Bc[:0], Cc[:0],
                              torch.zeros(0, 4, 64), A, None)
-    # a tensor on neither the CPU nor a CUDA device is refused, not
-    # handed to the plain version
+    # meta tensors (a dry run's shapes) give the outputs' shapes and
+    # launch nothing; a mix of devices is refused, not handed to the plain
+    # version
     meta = [t.to("meta") for t in (dt, Bc, Cc, x, A)]
+    y, h = MS.mamba1_scan(*meta)
+    assert y.is_meta and y.shape == x.shape and h.shape == (1, 64, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        MS.mamba1_scan(*meta)
+        MS.mamba1_scan(dt, Bc, Cc, x.to("meta"), A)
     # falcon-mamba-7b: Di 8192, N 16 -> 64 channels a block, 128 blocks,
     # in each of 16 chunks at the served prompt
     assert MS.plan(1, 1024, 8192, 16)[-1][1] == (128, 16, 1)

@@ -183,9 +183,13 @@ def test_kernel_launch_refusals_and_plan():
     with pytest.raises(TypeError, match="float32"):
         SD._check_launchable(dt, Bc, Cc, x, A, torch.zeros(1, H, P, N,
                                                            dtype=torch.half))
+    # meta tensors (a dry run's shapes) give the outputs' shapes and
+    # launch nothing; a mix of devices is refused
     meta = [t.to("meta") for t in (dt, Bc, Cc, x, A)]
+    y, h = SD.ssd_scan(*meta)
+    assert y.is_meta and y.shape == x.shape and h.shape == (1, H, P, N)
     with pytest.raises(ValueError, match="CUDA"):
-        SD.ssd_scan(*meta)
+        SD.ssd_scan(dt, Bc, Cc, x.to("meta"), A)
     # zamba2-7b (H 112 heads of P 64, N 64) at batch 1: a decode step is
     # 112 x 8 blocks of 8 rows; any longer call three chunk-parallel
     # launches, one chunk a head at 64 steps and 16 at 1024, whose bf16
