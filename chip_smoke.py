@@ -250,7 +250,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                time, peak memory, ``BuildReport.t_reshard`` and
                ``calibrate_mesh``'s scales beside the mapping (with both
                shards on one card they are fitted to walls with no link
-               in them: not a tensor-parallel speed).
+               in them: not a tensor-parallel speed); (e) for qwen2.5-3b,
+               a 4-slot pool on the same weights (phase 7's prompts,
+               max_seq 2048; 12a holds flash_decode at a shard's 8/1
+               heads with its per-row positions [1024, 0, 2047, 37]) with
+               8 steps between each of: switch_b2 onto the mesh, an
+               admission into the free slot, one into the full pool
+               (preempts and parks), switch_b2 to 3/4 of the depth on
+               the transfer arm, back and there again on the recompute
+               arm, the readmission (preempts), switch_b2 off the mesh;
+               every live session's logits within 5% of the largest of
+               an unswitched twin pool's fed the same admissions and
+               tokens, 0 state bytes moved at each mesh transition, the
+               first step on the mesh placing exactly the live
+               cloud-range state (printed), each step's launches
+               (flash_decode: the edge layers plus 2 x the cloud layers
+               on the mesh) and all-reduces (2 a cloud layer).
 13. counter  — (a) ``repro_torch.launch.dryrun``'s count of qwen2.5-3b's
                train_4k, prefill_32k and decode_32k steps on the 16 x 16
                production mesh, on meta tensors in this process, priced on
@@ -3192,6 +3207,18 @@ def shard_kernels(cfg, seed: int, stateful: bool) -> dict:
                     hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
                          FD.flash_decode_attention_plain(q, k, v, pos=pos_t),
                          f"flash_decode shard {full} pos {pos}", bf16)
+            if stateful and cfg.name == SERVE_ARCH:
+                # 12e's slot pool: a row's own position, one a slot
+                B4 = len(SLOT_POS)
+                q = rand((B4, 1, H, D), dtype)
+                k, v = rand((B4, KH, MAX_SEQ, D), dtype), \
+                    rand((B4, KH, MAX_SEQ, D), dtype)
+                pos_t = torch.tensor(SLOT_POS, dtype=torch.int32,
+                                     device="cuda")
+                hold(FD.flash_decode_attention(q, k, v, pos=pos_t),
+                     FD.flash_decode_attention_plain(q, k, v, pos=pos_t),
+                     f"flash_decode shard {dict(full, B=B4)} per-row pos "
+                     f"{SLOT_POS}", bf16)
             for Sq, Sk, causal in calls:
                 qa, ka, va = inputs(B, Sq, Sk, H, KH, D, dtype)
                 hold(FA.flash_attention(qa, ka, va, causal=causal),
@@ -3573,6 +3600,14 @@ def phase_sharding(K, cfg, params, seed, gclog: GcLog, *,
                                           ar["step_calls"])
             result["stateful"] = sf
             peak = max(peak, sf["peak_device_bytes"])
+            if arch == SERVE_ARCH:
+                K.reset()
+                sp = phase_sharding_pool(K, cfg, params, seed, gclog,
+                                         split)
+                launches = {k: launches[k] + n
+                            for k, n in sp.pop("launches").items()}
+                result["slot_pool"] = sp
+                peak = max(peak, sp["peak_device_bytes"])
         print(f"[shard] {arch}: all-reduces {ar}; peak device memory "
               f"{peak} B; the stateless switch_b2's BuildReport.t_reshard "
               f"{t_reshard_build:.6f} s")
@@ -3715,6 +3750,193 @@ def phase_sharding_stateful(K, cfg, params, seed, gclog: GcLog,
             "profiled_step_mesh": prof_step_mesh,
             "profiled_step_one_device": prof_step_one,
             "step_all_reduces": ar_step, "launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+# 12e: the slot pool on the mesh, the sequence of
+# tools/probe_reference_slot_mesh_ops.py with POOL_STEPS steps between
+POOL_STEPS = 8
+POOL_LATE = (SERVE_LATE, 128)       # into the free slot, then the full pool
+
+
+def phase_sharding_pool(K, cfg, params, seed, gclog: GcLog,
+                        split: int) -> dict:
+    """12e: a ``SERVE_SLOTS``-slot pool (``make_session_manager``, max_seq
+    ``MAX_SEQ``) on the loaded weights, phase 7's prompts admitted, through
+    ``POOL_STEPS`` steps between each of: switch_b2 onto the mesh at
+    ``split``; an admission into the free slot; one into the full pool
+    (preempts and parks); switch_b2 to ``3 L / 4`` on the mesh on the
+    transfer arm, back to ``split`` and to ``3 L / 4`` again on the
+    recompute arm; the readmission of the parked session (preempts in
+    turn); switch_b2 off the mesh.  Checks each live session's logits
+    against a twin pool that never switches, fed the same admissions and
+    tokens (within ``LOGIT_RTOL`` of the largest), 0 state bytes moved
+    at each mesh transition, the first step on the mesh placing exactly
+    the cloud range's state, each step's launches (a mesh step's
+    flash_decode: the edge layers plus tp times the cloud layers) and
+    all-reduces (2 a cloud layer).  Launches are read before the twin
+    runs."""
+    from repro_torch.core.network import NetworkModel
+    from repro_torch.distributed import tp as TP
+    from repro_torch.serving import make_session_manager
+
+    arch, L, tp = cfg.name, cfg.num_layers, SHARD_MESH[-1]
+    moved_split = (3 * L) // 4
+    gclog.label = f"{arch} phase 12e"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+               for n in SERVE_PROMPTS + POOL_LATE]
+
+    def pool():
+        return make_session_manager(
+            cfg, params, split=split, net=NetworkModel(SERVE_MBPS),
+            num_slots=SERVE_SLOTS, max_seq=MAX_SEQ, attn_impl="kernel",
+            decode_impl="auto", device="cuda")
+
+    def per_step(at: int, mesh: bool) -> dict:
+        want = expected(K, cfg, 0, at, "decode")
+        for name, n in scaled(expected(K, cfg, at, L, "decode"),
+                              tp if mesh else 1).items():
+            want[name] += n
+        return want
+
+    mgr, sm = pool()
+    events, seen, step_ms = [], [], {"one device": [], "mesh": []}
+    where = {"split": split, "mesh": False}
+
+    def cloud():
+        a = mgr.active
+        return sm.subset(a._u_edge, a._u_all)
+
+    def steps(n: int):
+        at, mesh = where["split"], where["mesh"]
+        for _ in range(n):
+            tok = sm.next_token()
+            before, ar0 = K.read(), TP.all_reduce.calls
+            _, timing = mgr.serve({"token": tok})
+            got, ar = K.since(before), TP.all_reduce.calls - ar0
+            check(got == per_step(at, mesh), f"phase 12e {arch}: a step at "
+                  f"split {at} (mesh {mesh}) launched {got}, want "
+                  f"{per_step(at, mesh)}")
+            want_ar = all_reduces(cfg, at, L) if mesh else 0
+            check(ar == want_ar, f"phase 12e {arch}: {ar} all-reduces a "
+                                 f"step, want {want_ar}")
+            step_ms["mesh" if mesh else "one device"].append(
+                (timing.t_edge / mgr.active.edge_scale + timing.t_cloud)
+                * 1e3)
+            events.append(("step", tok.cpu()))
+            seen.append({s: sm.logits_for(s).float().cpu()
+                         for s in sm.session_ids()})
+
+    def admit(i: int):
+        sm.admit(prompts[i], sid=f"s{i}")
+        events.append(("admit", i))
+
+    def readmit(sid: str):
+        sm.readmit(sid)
+        events.append(("readmit", sid))
+
+    transitions = []
+
+    def switch(at: int, mesh: bool, arm=None):
+        mgr.pool.force_mode = arm
+        n = len(mgr.pool.reshards)
+        mgr.set_mesh_shape(SHARD_MESH if mesh else None)
+        r = mgr.repartition("switch_b2", at)
+        rs = mgr.pool.reshards[n:]
+        transitions.append({
+            "to_split": at, "mesh": mesh, "mesh_change": r.mesh_change,
+            "handoff_mode": r.handoff_mode, "handoff_bytes": r.handoff_bytes,
+            "reshard_moved_bytes": [x.moved_bytes for x in rs],
+            "downtime_s": r.downtime})
+        check(len(rs) == int(r.mesh_change) and r.mesh_change == (
+            mesh != where["mesh"]) and all(x.moved_bytes == 0 for x in rs),
+            f"phase 12e {arch}: switch_b2 to split {at} (mesh {mesh}): "
+            f"reshards {rs}, want 0 state bytes moved (a slot pool's first "
+            f"step places its state)")
+        check(arm is None or r.handoff_mode == arm,
+              f"phase 12e {arch}: hand-off {r.handoff_mode}, want {arm}")
+        where.update(split=at, mesh=mesh)
+
+    for i in range(len(SERVE_PROMPTS)):
+        admit(i)
+    steps(POOL_STEPS)
+    live = sum(v.numel() * v.element_size() for v in cloud().values())
+    switch(split, True)
+    placed_before = {k: v for k, v in cloud().items()
+                     if not isinstance(v, TP.ShardedTensor)}
+    steps(1)
+    placed = {k: v for k, v in placed_before.items()
+              if isinstance(sm.cache[k], TP.ShardedTensor)}
+    placed_bytes = sum(v.numel() * v.element_size()
+                       for v in placed.values())
+    check(placed.keys() == cloud().keys() and placed_bytes == live,
+          f"phase 12e {arch}: the first step on the mesh placed "
+          f"{placed_bytes} B of {sorted(placed)}, the live cloud-range "
+          f"state is {live} B")
+    steps(POOL_STEPS - 1)
+    admit(len(SERVE_PROMPTS))               # into the free slot
+    steps(POOL_STEPS)
+    admit(len(SERVE_PROMPTS) + 1)           # into the full pool
+    parked = sm.parked_ids()
+    check(len(parked) == 1, f"phase 12e {arch}: parked {parked}")
+    steps(POOL_STEPS)
+    switch(moved_split, True, "transfer")
+    steps(POOL_STEPS)
+    switch(split, True, "recompute")
+    steps(POOL_STEPS)
+    switch(moved_split, True, "recompute")
+    steps(POOL_STEPS)
+    readmit(parked[0])
+    steps(POOL_STEPS)
+    switch(moved_split, False)
+    steps(POOL_STEPS)
+    check(not any(isinstance(v, TP.ShardedTensor)
+                  for v in sm.cache.values()),
+          f"phase 12e {arch}: state left on the mesh after a step off it")
+    shut(mgr)
+    launches = K.read()       # the main path's; not the twin's below
+    wall = time.perf_counter() - t0
+    # the twin: the same admissions and tokens, one device, never switched
+    twin, tsm = pool()
+    diffs, scale, n = [], 0.0, 0
+    for kind, arg in events:
+        if kind == "admit":
+            tsm.admit(prompts[arg], sid=f"s{arg}")
+        elif kind == "readmit":
+            tsm.readmit(arg)
+        else:
+            twin.serve({"token": arg.cuda()})
+            got = seen[n]
+            n += 1
+            check(sorted(got) == sorted(tsm.session_ids()),
+                  f"phase 12e {arch}: live sessions {sorted(got)}, the "
+                  f"twin's {tsm.session_ids()}")
+            want = {s: tsm.logits_for(s).float().cpu() for s in got}
+            diffs.append(max(max_diff(got[s], want[s]) for s in got))
+            scale = max([scale] + [w.abs().max().item()
+                                   for w in want.values()])
+    shut(twin)
+    check(max(diffs) <= LOGIT_RTOL * scale,
+          f"phase 12e {arch}: live logits differ from the twin's by "
+          f"{max(diffs)} (> {LOGIT_RTOL} of {scale})")
+    check(all(bool(torch.isfinite(x).all()) for step in seen
+              for x in step.values()),
+          f"phase 12e {arch}: non-finite logits")
+    med = {k: sorted(v)[len(v) // 2] for k, v in step_ms.items()}
+    print(f"[shard] {arch} slot pool ({SERVE_SLOTS} slots, max_seq "
+          f"{MAX_SEQ}) on {SHARD_MESH}: transitions {transitions}; the "
+          f"first step on the mesh placed {placed_bytes} B (the live "
+          f"cloud-range state {live} B); max |logit diff| from the twin "
+          f"{max(diffs):.3e} (max |logit| {scale:.3e}) over {n} steps; "
+          f"step wall median ms {med}; took {wall:.1f} s (the twin "
+          f"after)")
+    return {"transitions": transitions, "placed_bytes": placed_bytes,
+            "live_state_bytes": live, "max_logit_diff": max(diffs),
+            "max_logit": scale, "steps": n, "step_ms_median": med,
+            "wall_s": wall, "launches": launches,
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 

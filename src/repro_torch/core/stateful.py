@@ -1146,12 +1146,15 @@ class StatefulEdgeCloudPipeline:
     the LM head (measured wall).  The session advances once per served
     request.
 
-    ``mesh_shape`` puts the cloud stage on a tensor-parallel mesh (a
-    ``DecodeSession``'s stream; a slot pool's is refused): the
-    weights are copied onto it at build (``BuildReport.t_reshard``), the
-    cloud range's decode state lives per shard, and each step replicates
-    the boundary hidden onto the mesh and brings the logits back to the
-    edge's device.  The edge stage stays on one device."""
+    ``mesh_shape`` puts the cloud stage on a tensor-parallel mesh, behind
+    a ``DecodeSession``'s stream or a slot pool: the weights are copied
+    onto it at build (``BuildReport.t_reshard``), the cloud range's decode
+    state lives per shard, and each step replicates the boundary hidden
+    onto the mesh and brings the logits back to the edge's device.  A
+    slot pool's state is placed by its first step on the mesh (``reshard``
+    moves none of it, as the reference's moves none) and its rows are
+    written per shard (``tp.ShardedTensor.write_row``).  The edge stage
+    stays on one device."""
 
     def __init__(self, runner: StatefulStageRunner, split: int,
                  net: NetworkModel, *,
@@ -1161,11 +1164,6 @@ class StatefulEdgeCloudPipeline:
                  mesh_shape: Optional[tuple] = None):
         self.mesh_shape = tuple(int(d) for d in mesh_shape) \
             if mesh_shape else None
-        if self.mesh_shape is not None:
-            if not isinstance(session, DecodeSession):
-                raise NotImplementedError("a slot pool's (SessionManager) "
-                                          "cloud stage on a mesh is not "
-                                          "ported yet")
         self.runner = runner
         self.session = session
         self.split = min(max(int(split), 0), runner.num_units)
@@ -1256,10 +1254,12 @@ class StatefulEdgeCloudPipeline:
         its mesh, or back to the session's device for a single-device
         pipeline taking over from a mesh.  The weights were placed at
         build, so only the state, which kept advancing on the old
-        placement, moves.  Returns the logical bytes moved."""
-        if not self.ready:
-            return 0
+        placement, moves.  Returns the logical bytes moved.  A session
+        without ``replace_state`` (a slot pool) moves nothing here, as in
+        the reference: its next step places the state (``_step``)."""
         s = self.session
+        if not self.ready or not hasattr(s, "replace_state"):
+            return 0
         placed = {}
         for k, v in s.subset(self._u_edge, self._u_all).items():
             if self.mesh is None:
@@ -1278,8 +1278,16 @@ class StatefulEdgeCloudPipeline:
     # -- serve -----------------------------------------------------------
     def _step(self, token, cache_edge, cache_cloud, pos):
         """One decode step through both stages; returns everything the
-        session needs to commit, plus the measured stage timing."""
+        session needs to commit, plus the measured stage timing.  State
+        left on a mesh that this pipeline does not run on (a slot pool's
+        after a switch off the mesh) is brought back to the device first,
+        as the reference pulls it back; a mesh stage places whole entries
+        on its first step."""
         dev = self.runner.device
+        cache_edge = {k: TP.whole(v, dev) for k, v in cache_edge.items()}
+        if self.mesh is None:
+            cache_cloud = {k: TP.whole(v, dev)
+                           for k, v in cache_cloud.items()}
         sw = Stopwatch()
         x = self.embed_fn(self.params, token)
         xe, new_e, b_e = self.edge_fn(self.params, x, cache_edge, pos)

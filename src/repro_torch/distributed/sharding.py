@@ -440,6 +440,14 @@ def shard_tree(tree, specs, mesh: CloudMesh) -> list:
     return [one(c, d) for c, d in zip(_positions(mesh), mesh.devices)]
 
 
+def blocks(t, spec, mesh: CloudMesh) -> list:
+    """The block of ``t`` each mesh position holds under ``spec``, in
+    ``shard_tree``'s order, where ``t`` lies (views where ``spec`` has no
+    ``Cat``; no copy to the shards' devices)."""
+    sizes = _sizes(mesh)
+    return [_cut(t, spec, c, sizes) for c in _positions(mesh)]
+
+
 def gather_tree(shards: list, specs, mesh: CloudMesh, device, like) -> Any:
     """Inverse of ``shard_tree``: whole tensors shaped as ``like``'s
     leaves (tensors or specs) on ``device``, each block copied from the

@@ -82,8 +82,9 @@ import torch
 
 from repro_torch.distributed.op_analysis import counted_collective
 from repro_torch.distributed.sharding import (Cat, P, ShardingDegraded,
-                                              gather_tree, map_with_path,
-                                              param_rules, shard_tree)
+                                              blocks, gather_tree,
+                                              map_with_path, param_rules,
+                                              shard_tree)
 from repro_torch.launch.mesh import CloudMesh
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
@@ -352,6 +353,38 @@ class ShardedTensor:
         """New per-shard values of this entry, in its layout."""
         return ShardedTensor(shards, self.spec, self.row, self.shape,
                              shards[0].dtype, self.mesh_key)
+
+    # -- rows: a slot pool's axis 0, which no ``state_spec`` cuts --------
+    def _rows(self, j: int) -> List[torch.Tensor]:
+        assert _axis0_whole(self.spec), \
+            f"{self.spec} cuts axis 0: a row is not whole on each shard"
+        return [t[j:j + 1] for t in self.shards]
+
+    def read_row(self, j: int, device) -> torch.Tensor:
+        """Row ``j`` whole on ``device`` (each shard's slice of the row
+        gathered; the other rows are not read)."""
+        like = torch.empty((1,) + tuple(self.shape[1:]), dtype=self.dtype,
+                           device="meta")
+        return gather_tree(self._rows(j), self.spec, self.row, device,
+                           like=like)[0]
+
+    def write_row(self, j: int, row: torch.Tensor) -> None:
+        """Write the whole row ``row`` (``shape[1:]``) into row ``j`` of
+        every shard, each shard's slice cut from it by the entry's spec:
+        one copy a shard, the other rows untouched."""
+        for dst, src in zip(self._rows(j), blocks(row[None], self.spec,
+                                                  self.row)):
+            dst.copy_(src)
+
+    def zero_row(self, j: int) -> None:
+        for dst in self._rows(j):
+            dst.zero_()
+
+
+def _axis0_whole(spec) -> bool:
+    if isinstance(spec, Cat):
+        return all(_axis0_whole(s) for _, s in spec.parts)
+    return len(spec) == 0 or spec[0] is None
 
 
 def state_spec(cfg, layout: TPLayout, key: str):

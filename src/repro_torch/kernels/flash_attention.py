@@ -50,6 +50,7 @@ SMS = 132                   # an H100 SXM's streaming multiprocessors
 
 def _scale(D: int) -> float:
     """1/sqrt(D) rounded to f32, as the reference kernel's constant is."""
+    # nk: allow[NK03]: a numpy scalar from a host int, no device value
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
@@ -262,7 +263,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
         else lib.flash_attention_f32
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             # nk: allow[NK03]: causal, window, q_offset are host values
              B, Sq, Sk, H, KH, D, strides, int(bool(causal)),
+             # nk: allow[NK03]: (the wrapper's keyword arguments)
              0 if window is None else int(window), int(q_offset),
              n_q_tiles(Sq), _scale(D), stream)
     if err >= 999:

@@ -81,11 +81,13 @@ def slice_bounds(valid: int, split: int, n_split: int) -> Tuple[int, int]:
 
 def _scale(D: int) -> float:
     """1/sqrt(D) rounded to f32, as the reference kernel's constant is."""
+    # nk: allow[NK03]: a numpy scalar from a host int, no device value
     return float(np.float32(1.0 / math.sqrt(D)))
 
 
 def _scale_log2(D: int) -> float:
     """log2(e)/sqrt(D): the kernel's exponentials are base 2."""
+    # nk: allow[NK03]: a numpy scalar from a host int, no device value
     return float(np.float32(math.log2(math.e) / math.sqrt(D)))
 
 
@@ -200,6 +202,7 @@ def _pos_buffer(pos, B: int, device) -> Tuple[torch.Tensor, int]:
                              f"{device}")
         buf = pos.reshape(-1)
     else:
+        # nk: allow[NK03]: a ``pos`` that is not a tensor is a host int
         buf = torch.tensor([int(pos)], device=device)
     if buf.numel() not in (1, B):
         raise ValueError(f"pos must be a scalar or ({B},), got "

@@ -240,6 +240,7 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     err = fn(dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), x.data_ptr(),
              A.data_ptr(), None if h0 is None else h0.data_ptr(),
              y.data_ptr(), h.data_ptr(),
+             # nk: allow[NK03]: ``chunked`` is the host plan's flag
              None if scratch is None else scratch.data_ptr(), int(chunked),
              B, S, Di, N, strides, stream)
     if err != 0:

@@ -44,6 +44,17 @@ bookkeeping.  Parked sessions and hand-off payloads use the port's
 consumed it), a parked session's is ``bytes`` of its own, which outlive
 the pool's host blocks.
 
+On a tensor-parallel mesh (``StatefulEdgeCloudPipeline(mesh_shape=)``)
+the cloud range's entries become ``tp.ShardedTensor``s at the first step
+there; every row operation takes them as they lie.  Admission and
+readmission write the row into each shard's slice
+(``ShardedTensor.write_row``), parking reads it gathered and zeroes it
+per shard, and an export gathers whole entries into the same wire format.
+Imports and recomputes land whole entries on ``runner.device``, which the
+next step places.  The reference raises on every row write into its
+mesh-placed cache (``tools/probe_reference_slot_mesh_ops.py``); the port
+serves them.
+
 Locking: slot metadata (``_slots``/``_parked``) is guarded by a rank-47
 lock — above the stateful runner's rank-42 lock, so the manager must
 NEVER call into the runner's caches while holding its own lock
@@ -75,7 +86,29 @@ from repro_torch.core.stateful import (HANDOFF_META_KEY, HandoffCorrupted,
                                        payload_checksum,
                                        unit_index_of_split, warm_host_blocks)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import tp as TP
 from repro_torch.models import transformer as T
+
+
+def _read_row(t, j: int, device) -> torch.Tensor:
+    """Row ``j`` of a state entry, whole (gathered if on a mesh)."""
+    return t.read_row(j, device) if isinstance(t, TP.ShardedTensor) \
+        else t[j]
+
+
+def _write_row(t, j: int, row: torch.Tensor) -> None:
+    """Write the whole row ``row`` into row ``j`` of a state entry."""
+    if isinstance(t, TP.ShardedTensor):
+        t.write_row(j, row)
+    else:
+        t[j] = row
+
+
+def _zero_row(t, j: int) -> None:
+    if isinstance(t, TP.ShardedTensor):
+        t.zero_row(j)
+    else:
+        t[j] = 0
 
 
 class SlotPoolFull(RuntimeError):
@@ -268,7 +301,7 @@ class SessionManager:
             j = self._find_slot()
             slot = self._slots[j]
             for k, v in caches.items():
-                self.cache[k][j] = v[0]
+                _write_row(self.cache[k], j, v[0])
             self._bounds[:, j] = bounds[:, 0]
             self._tokens[j] = tok[0]
             self.last_logits[j] = logits[0]
@@ -360,7 +393,7 @@ class SessionManager:
         state: Dict[str, tuple] = {}
         for unit in self.runner.units:
             for k in _unit_state_keys(self.cfg, unit):
-                t = self.cache[k][j]
+                t = _read_row(self.cache[k], j, self.device)
                 if _is_kv(k):                    # row KV: (KH, S, hd)
                     t = t[:, :slot.pos]
                 dtype, shape, buf = _payload_entry(t)
@@ -374,8 +407,8 @@ class SessionManager:
             "logits": self.last_logits[j].to("cpu", copy=True),
             "pos": slot.pos,
         }
-        for k in self.cache:
-            self.cache[k][j] = 0
+        for v in self.cache.values():
+            _zero_row(v, j)
         self._tokens[j] = 0
         self._bounds[:, j] = 0
         self.last_logits[j] = 0
@@ -395,10 +428,10 @@ class SessionManager:
             for k, (dtype, shape, buf) in parked["state"].items():
                 t = _from_payload(dtype, shape, buf, dev)
                 if _is_kv(k):
-                    self.cache[k][j] = 0
-                    self.cache[k][j, :, :t.shape[1]] = t
-                else:
-                    self.cache[k][j] = t
+                    row = t.new_zeros(self.cache[k].shape[1:])
+                    row[:, :t.shape[1]] = t
+                    t = row
+                _write_row(self.cache[k], j, t)
             self._tokens[j, :pos] = parked["tokens"].to(dev)
             self._bounds[:, j, :pos] = parked["bounds"].to(dev)
             self.last_logits[j] = parked["logits"].to(dev)
@@ -437,7 +470,8 @@ class SessionManager:
         """Serialize layers [lo, hi) of the WHOLE slot pool: one payload,
         batch axis intact, KV sliced to the max live prefix (rows are
         zero beyond their own pos, so nothing is lost).  Same envelope
-        (epoch, pos, crc) and wire format as ``DecodeSession``."""
+        (epoch, pos, crc) and wire format as ``DecodeSession``; entries on
+        a mesh are gathered whole first."""
         u0 = unit_index_of_split(self.cfg, lo)
         u1 = unit_index_of_split(self.cfg, hi)
         payload: Dict[str, tuple] = {}
@@ -446,7 +480,7 @@ class SessionManager:
             pos = max((s.pos for s in self._slots if s.live), default=0)
             for unit in self.runner.units[u0:u1]:
                 for k in _unit_state_keys(self.cfg, unit):
-                    t = self.cache[k]
+                    t = TP.whole(self.cache[k], self.device)
                     cap = t.numel()
                     if _is_kv(k):
                         t = t[:, :, :pos]
@@ -573,14 +607,17 @@ class SessionManager:
 
             self._step_fn = step
         token = self.next_token()
-        logits, new, b = self._step_fn(r.params, token, self.subset(0, U),
+        cache = {k: TP.whole(v, self.device)
+                 for k, v in self.subset(0, U).items()}
+        logits, new, b = self._step_fn(r.params, token, cache,
                                        self.step_pos())
         self.commit_step(token, new, b, logits)
         return token
 
     # -- test/benchmark support -------------------------------------------
     def snapshot(self) -> dict:
-        """A copy of the whole pool (copies: decode writes in place)."""
+        """A copy of the whole pool (copies: decode writes in place; an
+        entry on a mesh is copied shard by shard, and restored so)."""
         with self._lock:
             return {"cache": {k: v.clone() for k, v in self.cache.items()},
                     "tokens": self._tokens.clone(),
@@ -593,7 +630,8 @@ class SessionManager:
     def restore(self, snap: dict) -> None:
         dev = self.device
         with self._lock:
-            self.cache = {k: v.to(dev).clone()
+            self.cache = {k: v.clone() if isinstance(v, TP.ShardedTensor)
+                          else v.to(dev).clone()
                           for k, v in snap["cache"].items()}
             self._tokens = snap["tokens"].to(dev).clone()
             self._bounds = snap["bounds"].to(dev).clone()

@@ -6,8 +6,10 @@ head is replicated on the shards that read it, and at tp 8, where the
 attention degrades to replicated compute with a warning; the stateless
 mesh repartition at every split; the stateful round trip onto a 2-way
 mesh and back; a transfer hand-off out of a mesh pipeline that the
-reference's ``validate_payload`` takes; CNNs and slot pools refused on a
-mesh.  The other families' mesh stages: ``test_torch_tp_families.py``."""
+reference's ``validate_payload`` takes; CNNs refused on a mesh, and a slot
+pool served there.  The other families' mesh stages:
+``test_torch_tp_families.py``; a slot pool's admissions, parking and
+hand-offs on a mesh: ``test_torch_tp_sessions.py``."""
 import dataclasses
 import warnings
 
@@ -265,18 +267,34 @@ def test_mesh_transfer_payload_is_the_references():
         tm.close()
 
 
-def test_mesh_refuses_cnns_and_slot_pools():
+def test_mesh_refuses_cnns():
     cnn = CnnStageRunner(tget("mobilenetv2"),
                          generator=torch.Generator().manual_seed(0),
                          device="cpu")
     with pytest.raises(NotImplementedError):
         EdgeCloudPipeline(cnn, 1, NetworkModel(20.0), mesh_shape=(2,))
+
+
+def test_mesh_serves_slot_pools():
+    """A slot pool's pipeline on a (2,) mesh builds and serves a step
+    whose logits equal the single-device pipeline's (1e-4), and places
+    the cloud range's entries per shard."""
     mgr, sm = make_session_manager(tget("qwen2.5-3b").reduced(), split=1,
                                    num_slots=2, max_seq=16,
                                    net=NetworkModel(20.0), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="slot pool"):
-            StatefulEdgeCloudPipeline(mgr.runner, 1, NetworkModel(20.0),
-                                      session=sm, mesh_shape=(2,))
+        sm.admit(np.arange(5) % 97)
+        snap = sm.snapshot()
+        one = mgr.active
+        mesh = StatefulEdgeCloudPipeline(mgr.runner, 1, NetworkModel(20.0),
+                                         session=sm, mesh_shape=(2,))
+        mesh.build(cold=False)
+        tok = sm.next_token()
+        want, _ = one.process({"token": tok})
+        sm.restore(snap)
+        got, _ = mesh.process({"token": tok})
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        assert isinstance(sm.cache["k1"], TP.ShardedTensor)
+        mesh.close()
     finally:
         mgr.close()
