@@ -1,0 +1,20 @@
+"""The benchmark's own tests (run from the repository root with
+``python -m pytest bench/tests``): the checkout and the program's
+``src`` on the path, and the card decided inside a fixture."""
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+
+@pytest.fixture
+def cuda():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
