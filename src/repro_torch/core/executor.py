@@ -103,10 +103,12 @@ class BuildHandle:
     """Future-like handle for one submitted build job."""
 
     def __init__(self, fn: Callable[[], Any], key: Any = None,
-                 retry: Optional[RetryPolicy] = None):
+                 retry: Optional[RetryPolicy] = None, span: str = "build"):
         self.fn = fn
         self.key = key
         self.retry = retry
+        self.span = span            # the job's recorded span (timing.timed)
+        self.cause = timing.current()   # the submitter's open span, if any
         self.result: Any = None
         self.error: Optional[BaseException] = None
         self.attempts = 0           # build attempts actually executed
@@ -146,7 +148,25 @@ class BuildHandle:
 
     # -- worker side -----------------------------------------------------
     def _run(self) -> None:
-        sw = timing.Stopwatch()
+        with timing.timed(self.span, cause=self.cause) as sp:
+            self._attempt()
+        self.t_wall = sp.wall
+        with self._cb_lock:
+            self._completed = True
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            try:
+                cb(self)
+            except Exception as e:
+                warnings.warn(f"build completion callback raised: {e!r}",
+                              BuildCallbackFailed)
+        # the event fires only after every registered callback ran, so
+        # wait()/drain() observing completion also observe the callbacks'
+        # effects (failure records, report fields, registry cleanup)
+        self._event.set()
+
+    def _attempt(self) -> None:
+        """Run the job, retried under the handle's policy."""
         policy = self.retry
         max_attempts = policy.max_attempts if policy is not None else 1
         deadline = None
@@ -166,20 +186,6 @@ class BuildHandle:
             if deadline is not None and timing.now() + backoff > deadline:
                 break                       # would retry past the deadline
             time.sleep(backoff)
-        self.t_wall = sw.elapsed()
-        with self._cb_lock:
-            self._completed = True
-            callbacks, self._callbacks = self._callbacks, []
-        for cb in callbacks:
-            try:
-                cb(self)
-            except Exception as e:
-                warnings.warn(f"build completion callback raised: {e!r}",
-                              BuildCallbackFailed)
-        # the event fires only after every registered callback ran, so
-        # wait()/drain() observing completion also observe the callbacks'
-        # effects (failure records, report fields, registry cleanup)
-        self._event.set()
 
 
 @guarded_by("_lock", "_outstanding", "_shutdown", "_thread",
@@ -207,9 +213,13 @@ class BuildExecutor:
 
     # -- submission -------------------------------------------------------
     def submit(self, fn: Callable[[], Any], *, key: Any = None,
-               retry: Optional[RetryPolicy] = None) -> BuildHandle:
+               retry: Optional[RetryPolicy] = None,
+               span: str = "build") -> BuildHandle:
+        """Queue ``fn``; its run is recorded as a ``span`` whose ``cause``
+        is the submitter's open span."""
         handle = BuildHandle(fn, key=key,
-                             retry=self.retry if retry is None else retry)
+                             retry=self.retry if retry is None else retry,
+                             span=span)
         if self.inline:
             handle._run()
             return handle

@@ -25,6 +25,7 @@ from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.stages import (StageRunner, param_bytes, to_device,
                                      tree_map)
+from repro_torch.core import timing
 from repro_torch.core.timing import Stopwatch
 from repro_torch.device import synchronize
 
@@ -111,6 +112,7 @@ class EdgeCloudPipeline:
             self.params = tree_map(torch.clone, r.params)
             synchronize(dev)
             rep.t_weights = sw.elapsed()
+            timing.count("weight_bytes", param_bytes(self.params))
         else:
             self.params = r.params
         lo_c, hi_c = self.split + 1, r.num_units
@@ -157,8 +159,8 @@ class EdgeCloudPipeline:
 
     def warm(self, sample_inputs) -> RequestTiming:
         """One throwaway forward: the "always-running" warm-up."""
-        _, timing = self.process(sample_inputs)
-        return timing
+        _, stage_timing = self.process(sample_inputs)
+        return stage_timing
 
     @property
     def ready(self) -> bool:
@@ -175,21 +177,22 @@ class EdgeCloudPipeline:
                 ) -> tuple[Any, RequestTiming]:
         assert self.ready, "pipeline not built"
         dev = self.runner.device
-        inputs = to_device(inputs, dev)
-        sw = Stopwatch()
-        h = self.edge_fn(self.params, inputs)
-        synchronize(dev)
-        t_edge = sw.elapsed() * self.edge_scale
-        if seq is None:
-            seq = inputs["tokens"].shape[1] if "tokens" in inputs else 1
-        bbytes = self.runner.boundary_bytes(self.split, batch, seq)
-        t_transfer = self.net.transfer_time(bbytes)
-        sw = Stopwatch()
-        out = self.cloud_fn(self.cloud_params, h)
-        self._sync()
-        t_cloud = sw.elapsed()
-        return out["logits"].to(dev), \
-            RequestTiming(t_edge, t_transfer, t_cloud)
+        with timing.span("request"):
+            inputs = to_device(inputs, dev)
+            with timing.timed("request.edge") as edge:
+                h = self.edge_fn(self.params, inputs)
+                synchronize(dev)
+            if seq is None:
+                seq = inputs["tokens"].shape[1] if "tokens" in inputs else 1
+            bbytes = self.runner.boundary_bytes(self.split, batch, seq)
+            t_transfer = self.net.transfer_time(bbytes)
+            with timing.timed("request.cloud") as cloud:
+                out = self.cloud_fn(self.cloud_params, h)
+                self._sync()
+            with timing.span("request.logits"):
+                logits = out["logits"].to(dev)
+        return logits, RequestTiming(edge.wall * self.edge_scale,
+                                     t_transfer, cloud.wall)
 
     # -- memory accounting (Table I) --------------------------------------
     def live_param_bytes(self) -> int:

@@ -431,11 +431,16 @@ class PipelinePool:
 
     def build_standby(self, split: int,
                       owns_weights: Optional[bool] = None) -> float:
-        """(Re)build the Scenario-A standby; returns wall-clock build time."""
+        """(Re)build the Scenario-A standby; returns wall-clock build time
+        (the ``standby_build`` span's)."""
         ow = self.resolve_standby_ownership(owns_weights)
-        sw = timing.Stopwatch()
-        entry, _ = self.ensure(self.make_key(split, owns_weights=ow),
-                               cold=ow, reuse=False)
+        with timing.timed("standby_build", split=split) as sp:
+            self._build_standby(split, ow)
+        return sp.wall
+
+    def _build_standby(self, split: int, owns_weights: bool) -> None:
+        entry, _ = self.ensure(self.make_key(split, owns_weights=owns_weights),
+                               cold=owns_weights, reuse=False)
         with self._lock:
             # arm the standby BEFORE warming: eviction treats the standby
             # as the last resort, so a concurrently-landing build's budget
@@ -443,7 +448,6 @@ class PipelinePool:
             self.standby_key = entry.key
         if self.warm_standbys:
             entry.pipeline.warm(self.sample_inputs)
-        return sw.elapsed()
 
     # -- background builds -------------------------------------------------
     def pending(self, key, owns_weights: bool = False
@@ -517,7 +521,9 @@ class PipelinePool:
                         self.evict_to_budget(reap_pending=(key,))
                 return entry
 
-            handle = self.executor.submit(job, key=key)
+            handle = self.executor.submit(
+                job, key=key,
+                span="standby_build" if standby else "background_build")
             self._pending[key] = handle
             if standby:
                 self._standby_handle = handle
@@ -622,18 +628,19 @@ class PipelinePool:
             assert entry.pipeline.ready, f"pipeline {key} not built"
             old_key = self.active_key if self.active_key is not None \
                 else self._paused_key
-            sw = timing.Stopwatch()
             reshard = None
-            if old_key is not None and old_key.mesh_shape != key.mesh_shape:
-                rsw = timing.Stopwatch()
-                moved = entry.pipeline.reshard()
-                reshard = ReshardReport(old_mesh=old_key.mesh_shape,
-                                        new_mesh=key.mesh_shape,
-                                        t_wall=rsw.elapsed(),
-                                        moved_bytes=moved)
-            self.active_key = key
-            self._paused_key = None
-            t_switch = sw.elapsed()
+            with timing.timed("switch.activate") as act:
+                if old_key is not None \
+                        and old_key.mesh_shape != key.mesh_shape:
+                    with timing.timed("switch.reshard") as rsp:
+                        moved = entry.pipeline.reshard()
+                    reshard = ReshardReport(old_mesh=old_key.mesh_shape,
+                                            new_mesh=key.mesh_shape,
+                                            t_wall=rsp.wall,
+                                            moved_bytes=moved)
+                self.active_key = key
+                self._paused_key = None
+            t_switch = act.wall
             if self.standby_key == key:
                 self.standby_key = None
             if reshard is not None:

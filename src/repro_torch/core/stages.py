@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, CNNConfig
+from repro_torch.core import timing
 from repro_torch.core.concurrency import (RANK_STAGE_CACHE, guarded_by,
                                           make_lock)
 from repro_torch.device import resolve_device, synchronize
@@ -166,11 +167,13 @@ class _BuiltStageCache:
         else:
             def fn(params, state):
                 return self._run_on_mesh(params, state, lo, hi)
-        fn(params, materialize(specs))           # warm-up on scratch state
-        synchronize(self.device)
-        if mesh is not None:
-            from repro_torch.distributed.tp import synchronize_mesh
-            synchronize_mesh(mesh)
+        with timing.span("stage_build", units=(lo, hi)):
+            timing.count("stage_builds")
+            fn(params, materialize(specs))       # warm-up on scratch state
+            synchronize(self.device)
+            if mesh is not None:
+                from repro_torch.distributed.tp import synchronize_mesh
+                synchronize_mesh(mesh)
         if not fresh:
             with self._cache_lock:
                 fn = self._stage_cache.setdefault(key, fn)

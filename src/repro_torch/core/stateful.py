@@ -96,6 +96,7 @@ from repro_torch.core.stages import (TensorSpec, abstractify,
                                      aval_fingerprint, layer_params,
                                      materialize, param_bytes, tree_map)
 from repro_torch.core.state_handoff import HandoffPlan, plan_handoff
+from repro_torch.core import timing
 from repro_torch.core.timing import Stopwatch
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed import tp as TP
@@ -743,11 +744,13 @@ class StatefulStageRunner:
                 hit = self._stage_cache.get(key)
             if hit is not None:
                 return hit
-        fn = makers[mode]()
-        fn(params, *materialize(specs))           # warm-up on scratch state
-        synchronize(self.device)
-        if mesh is not None:
-            TP.synchronize_mesh(mesh)
+        with timing.span("stage_build", mode=mode, units=(u0, u1)):
+            timing.count("stage_builds")
+            fn = makers[mode]()
+            fn(params, *materialize(specs))       # warm-up on scratch state
+            synchronize(self.device)
+            if mesh is not None:
+                TP.synchronize_mesh(mesh)
         if not fresh:
             with self._lock:
                 fn = self._stage_cache.setdefault(key, fn)
@@ -1071,10 +1074,12 @@ class DecodeSession:
         if u0 >= u1:
             return
         r = self.runner
-        with self.arena.use((u0, u1)):
+        with self.arena.use((u0, u1)), \
+                timing.span("handoff.recompute") as sp:
             with self._lock:
                 T_len = self.pos
                 x_pad = self._bounds[u0].clone()       # (B, max_seq, D)
+            sp.set(rows=self.batch * r.max_seq, live_rows=self.batch * T_len)
             x_pad[:, T_len:] = 0
             caches = r.recompute_fn(u0, u1)(r.params, x_pad, T_len)
             synchronize(self.device)
@@ -1198,6 +1203,7 @@ class StatefulEdgeCloudPipeline:
             self.params = tree_map(torch.clone, r.params)
             synchronize(dev)
             rep.t_weights = sw.elapsed()
+            timing.count("weight_bytes", param_bytes(self.params))
         else:
             self.params = r.params
         s = self.session
@@ -1284,29 +1290,31 @@ class StatefulEdgeCloudPipeline:
         as the reference pulls it back; a mesh stage places whole entries
         on its first step."""
         dev = self.runner.device
-        cache_edge = {k: TP.whole(v, dev) for k, v in cache_edge.items()}
-        if self.mesh is None:
-            cache_cloud = {k: TP.whole(v, dev)
-                           for k, v in cache_cloud.items()}
-        sw = Stopwatch()
-        x = self.embed_fn(self.params, token)
-        xe, new_e, b_e = self.edge_fn(self.params, x, cache_edge, pos)
-        synchronize(dev)
-        t_edge = sw.elapsed() * self.edge_scale
-        t_transfer = self.net.transfer_time(xe.numel() * xe.element_size())
-        sw = Stopwatch()
-        xc, new_c, b_c = self.cloud_fn(self.cloud_params, xe, cache_cloud,
-                                       pos)
-        logits = self.head_fn(self.cloud_params, xc)
-        if self.mesh is None:
+        with timing.span("step.gather"):
+            cache_edge = {k: TP.whole(v, dev) for k, v in cache_edge.items()}
+            if self.mesh is None:
+                cache_cloud = {k: TP.whole(v, dev)
+                               for k, v in cache_cloud.items()}
+        with timing.timed("step.edge") as edge:
+            with timing.span("step.embed"):
+                x = self.embed_fn(self.params, token)
+            xe, new_e, b_e = self.edge_fn(self.params, x, cache_edge, pos)
             synchronize(dev)
-        else:
-            TP.synchronize_mesh(self.mesh)
-            logits, b_c = logits.to(dev), b_c.to(dev)
-        t_cloud = sw.elapsed()
+        t_transfer = self.net.transfer_time(xe.numel() * xe.element_size())
+        with timing.timed("step.cloud") as cloud:
+            xc, new_c, b_c = self.cloud_fn(self.cloud_params, xe,
+                                           cache_cloud, pos)
+            with timing.span("step.head"):
+                logits = self.head_fn(self.cloud_params, xc)
+            if self.mesh is None:
+                synchronize(dev)
+            else:
+                TP.synchronize_mesh(self.mesh)
+                logits, b_c = logits.to(dev), b_c.to(dev)
         bounds = torch.cat([b_e, b_c], 0)
         return logits, {**new_e, **new_c}, bounds, \
-            RequestTiming(t_edge, t_transfer, t_cloud)
+            RequestTiming(edge.wall * self.edge_scale, t_transfer,
+                          cloud.wall)
 
     def process(self, inputs=None, *, batch: int = 1, seq=None) -> tuple:
         """Serve one decode request: advance the session by one token."""
@@ -1315,18 +1323,20 @@ class StatefulEdgeCloudPipeline:
         if s.pos >= self.runner.max_seq:
             raise RuntimeError(f"decode context full ({s.pos} >= "
                                f"max_seq {self.runner.max_seq})")
-        token = None
-        if isinstance(inputs, dict):
-            token = inputs.get("token")
-        if token is None:
-            token = s.next_token()
-        token = _as_tokens(token, self.runner.device)
-        pos = s.step_pos()
-        logits, new, bounds, timing = self._step(
-            token, s.subset(0, self._u_edge),
-            s.subset(self._u_edge, self._u_all), pos)
-        s.commit_step(token, new, bounds, logits)
-        return logits, timing
+        with timing.span("step"):
+            token = None
+            if isinstance(inputs, dict):
+                token = inputs.get("token")
+            if token is None:
+                token = s.next_token()
+            token = _as_tokens(token, self.runner.device)
+            pos = s.step_pos()
+            logits, new, bounds, stage_timing = self._step(
+                token, s.subset(0, self._u_edge),
+                s.subset(self._u_edge, self._u_all), pos)
+            with timing.span("step.commit"):
+                s.commit_step(token, new, bounds, logits)
+        return logits, stage_timing
 
     def warm(self, sample_inputs=None) -> RequestTiming:
         """Throwaway forward on SCRATCH state: absorbs the first-execution
@@ -1337,11 +1347,11 @@ class StatefulEdgeCloudPipeline:
                            for k, v in t.items()}
         tok = torch.zeros((s.batch, 1), dtype=torch.long,
                           device=self.runner.device)
-        _, _, _, timing = self._step(
+        _, _, _, stage_timing = self._step(
             tok, zeros(s.subset(0, self._u_edge)),
             zeros(s.subset(self._u_edge, self._u_all)),
             torch.zeros_like(s.step_pos()))
-        return timing
+        return stage_timing
 
     # -- memory accounting ------------------------------------------------
     def live_param_bytes(self) -> int:
@@ -1427,34 +1437,37 @@ class StatefulPipelinePool(PipelinePool):
         mode = self.force_mode or plan.best
         lo, hi = min(old_split, new_split), max(old_split, new_split)
         fallback = False
-        sw = Stopwatch()
-        if mode == "transfer":
-            payload, nbytes = s.export_layers(lo, hi)
-            fplan = self.fault_plan
-            if fplan is not None:
-                # chaos valve: in-transit corruption/truncation
-                fplan.mutate_handoff(payload, epoch=s.epoch)
-            # the (possibly corrupt) payload really crossed the link, so
-            # its priced seconds stand even when validation rejects it
-            t_network = self.net.transfer_time(nbytes)
-            try:
-                s.import_layers(payload)
-            except HandoffCorrupted as e:
-                warnings.warn(f"hand-off payload failed validation ({e}); "
-                              f"recovering via masked recompute",
-                              HandoffIntegrityWarning)
+        with timing.timed("handoff", mode=mode, layers=hi - lo) as sp:
+            if mode == "transfer":
+                with timing.span("handoff.export"):
+                    payload, nbytes = s.export_layers(lo, hi)
+                    timing.count("d2h_bytes", nbytes)
+                fplan = self.fault_plan
+                if fplan is not None:
+                    # chaos valve: in-transit corruption/truncation
+                    fplan.mutate_handoff(payload, epoch=s.epoch)
+                # the (possibly corrupt) payload really crossed the link,
+                # so its priced seconds stand even when validation
+                # rejects it
+                t_network = self.net.transfer_time(nbytes)
+                try:
+                    with timing.span("handoff.import"):
+                        s.import_layers(payload)
+                        timing.count("h2d_bytes", nbytes)
+                except HandoffCorrupted as e:
+                    warnings.warn(f"hand-off payload failed validation "
+                                  f"({e}); recovering via masked recompute",
+                                  HandoffIntegrityWarning)
+                    s.recompute_layers(lo, hi)
+                    mode, fallback = "recompute", True
+                synchronize(s.device)
+            else:
                 s.recompute_layers(lo, hi)
-                mode, fallback = "recompute", True
-            synchronize(s.device)
-        else:
-            s.recompute_layers(lo, hi)
-            nbytes, t_network = 0, 0.0
-        t_wall = sw.elapsed()
-        return HandoffReport(mode, hi - lo, nbytes, t_wall, t_network,
+                nbytes, t_network = 0, 0.0
+        return HandoffReport(mode, hi - lo, nbytes, sp.wall, t_network,
                              plan, s.epoch, fallback=fallback)
 
-    def build_standby(self, split: int,
-                      owns_weights: Optional[bool] = None) -> float:
+    def _build_standby(self, split: int, owns_weights: bool) -> None:
         """Build the Scenario-A standby, then run the re-prefill that
         switching to it from the active split would run, once on scratch
         input (``DecodeSession.warm_recompute``), in the session's
@@ -1462,14 +1475,12 @@ class StatefulPipelinePool(PipelinePool):
         in the shared cache a standby's build or a decode step can take
         them, and the fresh ``cudaMalloc``s a hand-off then made stretched
         it to twice its wall on the card (PERF.md).  The build pays for
-        them instead; the returned time includes it."""
-        sw = Stopwatch()
-        super().build_standby(split, owns_weights)
+        them instead; ``build_standby``'s time includes it."""
+        super()._build_standby(split, owns_weights)
         with self._lock:
             active = self.active_key
         if active is not None:
             self.session.warm_recompute(active.split, split)
-        return sw.elapsed()
 
     def take_last_handoff(self) -> Optional[HandoffReport]:
         """Pop the hand-off the most recent activation executed (the

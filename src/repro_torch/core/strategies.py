@@ -86,13 +86,14 @@ class SwitchReport:
     t_build: float = 0.0          # t_update / t_init / t_exec component
     t_switch: float = 0.0
     full_outage: bool = False     # True only for pause_resume
-    background_cost: float = 0.0  # e.g. standby rebuild after switch_a
     build_detail: Optional[BuildReport] = None
     cache_hit: bool = False       # switch landed on a pre-built pipeline
     note: str = ""                # surfaced anomalies (e.g. standby mismatch)
     t_blocked: float = 0.0        # serving-thread time spent inside switch()
-    t_background_wall: float = 0.0  # worker wall time for deferred builds;
-                                    # filled in async — read after drain()
+    t_background_wall: float = 0.0  # worker wall time for deferred builds
+                                    # (their spans' walls, e.g. switch_a's
+                                    # standby_build); filled in async —
+                                    # read after drain()
     # stateful pipelines only (see repro.core.stateful): the executed
     # KV/SSM state hand-off the switch's activation performed
     t_handoff: float = 0.0        # measured wall + priced link seconds
@@ -337,9 +338,9 @@ class PauseResumeStrategy(SwitchStrategy):
         sw = timing.Stopwatch()
         pool.pause()                                       # (ii) pause
         try:
-            entry, _ = pool.ensure(new_split, cold=True,   # (iii) update
-                                   reload_from=ckpt,
-                                   reuse=False)
+            with timing.span("switch.build"):              # (iii) update
+                entry, _ = pool.ensure(new_split, cold=True,
+                                       reload_from=ckpt, reuse=False)
             pool.activate(entry.key)                       # (iv) resume
         finally:
             # a failed rebuild must not strand the service in permanent
@@ -405,8 +406,7 @@ class ScenarioAStrategy(SwitchStrategy):
         ow = pool.resolve_standby_ownership(self.owns_weights)
 
         def _done(handle):
-            rep.background_cost = handle.t_wall
-            rep.t_background_wall = handle.t_wall
+            rep.t_background_wall = handle.t_wall    # its standby_build's
 
         pool.submit_build(old, owns_weights=ow, cold=ow, reuse=False,
                           standby=True, on_done=_done)
@@ -423,9 +423,10 @@ class ScenarioAStrategy(SwitchStrategy):
         note = ("standby unavailable (failed background rebuild or evicted "
                 "mid-switch); fell back to a warm build")
         warnings.warn(note, StandbySplitMismatch)
-        sw = timing.Stopwatch()
-        entry, _ = pool.ensure(new_split, owns_weights=False, cold=False)
-        t_build = sw.elapsed()
+        with timing.timed("switch.build") as build:
+            entry, _ = pool.ensure(new_split, owns_weights=False,
+                                   cold=False)
+        t_build = build.wall
         t_switch = pool.activate(entry.key)
         ow = pool.resolve_standby_ownership(self.owns_weights)
         pool.submit_build(old, owns_weights=ow, cold=ow, reuse=False,
@@ -445,10 +446,10 @@ class ScenarioB1Strategy(SwitchStrategy):
     def switch(self, pool: PipelinePool, new_split: int) -> SwitchReport:
         old_key = pool.active_key
         old = pool.active.split
-        sw = timing.Stopwatch()
-        entry, _ = pool.ensure(new_split, owns_weights=True, cold=True,
-                               reuse=False)                # new container
-        t_build = sw.elapsed()
+        with timing.timed("switch.build") as build:        # new container
+            entry, _ = pool.ensure(new_split, owns_weights=True, cold=True,
+                                   reuse=False)
+        t_build = build.wall
         t_switch = pool.activate(entry.key)                # redirect
         if old_key is not None and old_key != entry.key:
             pool.release(old_key)                          # reap old container
@@ -464,10 +465,10 @@ class ScenarioB2Strategy(SwitchStrategy):
 
     def switch(self, pool: PipelinePool, new_split: int) -> SwitchReport:
         old = pool.active.split
-        sw = timing.Stopwatch()
-        entry, _ = pool.ensure(new_split, owns_weights=False, cold=False,
-                               reuse=False)                # same container
-        t_build = sw.elapsed()
+        with timing.timed("switch.build") as build:        # same container
+            entry, _ = pool.ensure(new_split, owns_weights=False, cold=False,
+                                   reuse=False)
+        t_build = build.wall
         t_switch = pool.activate(entry.key)
         return SwitchReport("switch_b2", old, new_split,
                             downtime=t_build + t_switch, t_build=t_build,
@@ -587,9 +588,9 @@ class SwitchPoolStrategy(SwitchStrategy):
         if not hit and pool.pending(key) is not None:
             # the speculative build for exactly this key is in flight:
             # await it instead of duplicating the work
-            sw = timing.Stopwatch()
-            entry = pool.wait(key)
-            t_build = sw.elapsed()
+            with timing.timed("switch.build", awaited=True) as build:
+                entry = pool.wait(key)
+            t_build = build.wall
             if entry is not None:
                 t_switch = pool.try_activate(entry.key)
                 if t_switch is not None:
@@ -598,10 +599,10 @@ class SwitchPoolStrategy(SwitchStrategy):
                     detail = entry.report
                     downtime = t_build + t_switch
         if not hit:                               # miss: B2-style warm build
-            sw = timing.Stopwatch()
-            entry, _ = pool.ensure(new_split, owns_weights=False,
-                                   cold=False, reuse=False)
-            t_build += sw.elapsed()
+            with timing.timed("switch.build") as build:
+                entry, _ = pool.ensure(new_split, owns_weights=False,
+                                       cold=False, reuse=False)
+            t_build += build.wall
             t_switch = pool.activate(entry.key)
             detail = entry.report
             downtime = t_build + t_switch
@@ -637,7 +638,6 @@ class SwitchPoolStrategy(SwitchStrategy):
         def _done(handle):
             if report is not None:
                 report.t_background_wall += handle.t_wall
-                report.background_cost += handle.t_wall
 
         for s in want:
             if pool.has(s, self.owns_weights) \

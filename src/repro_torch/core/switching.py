@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
+from repro_torch.core import timing
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.pool import PipelinePool, PoolEntry, PoolKey
 from repro_torch.core.strategies import (SwitchReport, SwitchStrategy,
@@ -107,9 +108,11 @@ class PipelineManager:
                     new_split: int, *, drain: bool = True) -> SwitchReport:
         if drain:
             self.pool.drain()       # settle background builds first
-        report = self.get_strategy(strategy).switch(self.pool, new_split)
-        apply_handoff(self.pool, report)   # stateful pools: stamp the
-        return report                      # executed state hand-off
+        strategy = self.get_strategy(strategy)
+        with timing.span("switch", strategy=strategy.spec, split=new_split):
+            report = strategy.switch(self.pool, new_split)
+            apply_handoff(self.pool, report)   # stateful pools: stamp the
+        return report                          # executed state hand-off
 
     def drain(self, timeout=None) -> None:
         """Barrier: wait for all background builds; surface their failures."""

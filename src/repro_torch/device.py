@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import timing
+
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises if it names CUDA and no
@@ -21,6 +23,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (a no-op on the CPU), so a host
-    clock read after it measures the work and not only its launches."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    clock read after it measures the work and not only its launches.
+    Recorded as a ``wait`` span and counted as ``syncs``, on the CPU too."""
+    with timing.span("wait"):
+        timing.count("syncs")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)

@@ -80,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import timing
 from repro_torch.distributed.op_analysis import counted_collective
 from repro_torch.distributed.sharding import (Cat, P, ShardingDegraded,
                                               blocks, gather_tree,
@@ -104,9 +105,12 @@ def _on(device: torch.device):
 
 
 def synchronize_mesh(mesh: CloudMesh) -> None:
-    for d in set(mesh.devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
+    """Wait for every card of the mesh: one ``wait`` span, one ``syncs``."""
+    with timing.span("wait"):
+        timing.count("syncs")
+        for d in set(mesh.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from repro_torch.core import timing
 from repro_torch.core.timing import Stopwatch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -110,31 +111,36 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(library_path()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            F = ctypes.c_float
-            for name in ("flash_decode_f32", "flash_decode_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I,
-                               F, P]
-                fn.restype = I
-            for name in ("flash_attention_f32", "flash_attention_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, I, I, I, I, I, I,
-                               ctypes.POINTER(ctypes.c_int64), I, I, I, I,
-                               F, P]
-                fn.restype = I
-            I64P = ctypes.POINTER(ctypes.c_int64)
-            for name in ("mamba1_scan_f32", "mamba1_scan_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                               I64P, P]
-                fn.restype = I
-            for name in ("ssd_scan_f32", "ssd_scan_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                               I, I64P, P]
-                fn.restype = I
-            _lib = lib
+            with timing.span("kernels.load") as sp:
+                sp.set(compiled=build() > 0)
+                _lib = _bind(ctypes.CDLL(str(library_path())))
         return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare every entry point's argument and result types."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    F = ctypes.c_float
+    for name in ("flash_decode_f32", "flash_decode_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, P, I, P, I, I, I, I, I, I, I,
+                       F, P]
+        fn.restype = I
+    for name in ("flash_attention_f32", "flash_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                       ctypes.POINTER(ctypes.c_int64), I, I, I, I,
+                       F, P]
+        fn.restype = I
+    I64P = ctypes.POINTER(ctypes.c_int64)
+    for name in ("mamba1_scan_f32", "mamba1_scan_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                       I64P, P]
+        fn.restype = I
+    for name in ("ssd_scan_f32", "ssd_scan_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                       I, I64P, P]
+        fn.restype = I
+    return lib

@@ -82,6 +82,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+from repro_torch.core import timing
 from repro_torch.core.executor import BuildHandle
 from repro_torch.core.network import NetworkModel
 from repro_torch.core.pool import SwitchAbortedWarning
@@ -246,7 +247,8 @@ class ServingEngine:
         paused_before = getattr(self.pool, "pause_epoch", 0)
         self._prune_inflight(t_sw)          # whatever remains is in flight
         inflight = [rec for _, rec in self._inflight]
-        with self.clock.measure():
+        with self.clock.measure(), \
+                timing.span("switch", strategy=strategy.spec, split=new_split):
             report = self._run_switch(strategy, new_split, old, paused_before)
         # stateful pipelines: the hand-off's measured wall is already in
         # the charge above (it ran on this thread inside switch()); the
@@ -293,7 +295,7 @@ class ServingEngine:
         if self.switch_timeout_s is None:
             return strategy.switch(self.pool, new_split)
         handle = BuildHandle(lambda: strategy.switch(self.pool, new_split),
-                             key=("switch", new_split))
+                             key=("switch", new_split), span="switch")
         th = threading.Thread(target=handle._run, name="nk-switch",
                               daemon=True)
         th.start()

@@ -64,7 +64,6 @@ commit).
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -72,6 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import timing
 from repro_torch.core.concurrency import (RANK_SESSION_MANAGER, guarded_by,
                                           make_lock)
 from repro_torch.core.hardware import CLOUD_SPEC
@@ -109,6 +109,13 @@ def _zero_row(t, j: int) -> None:
         t.zero_row(j)
     else:
         t[j] = 0
+
+
+def _parked_bytes(parked: dict) -> int:
+    """Host bytes a parked session's copies hold."""
+    n = sum(len(buf) for _, _, buf in parked["state"].values())
+    return n + sum(parked[k].numel() * parked[k].element_size()
+                   for k in ("tokens", "bounds", "logits"))
 
 
 class SlotPoolFull(RuntimeError):
@@ -282,21 +289,30 @@ class SessionManager:
         if not 0 < L <= self.max_seq:
             raise ValueError(f"prompt length {L} not in [1, {self.max_seq}]")
         r = self.runner
-        # resolve the admission fn BEFORE taking our lock: the runner's
-        # cache lock ranks below ours (42 < 47)
-        admit_f = r.admit_fn()
-        tok = torch.zeros((1, self.max_seq), dtype=torch.long,
-                          device=self.device)
-        tok[0, :L] = prompt
-        logits, caches, bounds = admit_f(r.params, tok, L)
-        synchronize(self.device)
-        if not self._calibrated:
-            # warm second run prices THIS HOST's recompute throughput for
-            # the hand-off planner, exactly like DecodeSession.prefill
-            t0 = time.perf_counter()    # nk: allow[NK02]: host calibration
-            admit_f(r.params, tok, L)
+        with timing.span("admit"):
+            # resolve the admission fn BEFORE taking our lock: the
+            # runner's cache lock ranks below ours (42 < 47)
+            admit_f = r.admit_fn()
+            with timing.span("admit.prefill", rows=self.max_seq, prompt=L):
+                tok = torch.zeros((1, self.max_seq), dtype=torch.long,
+                                  device=self.device)
+                tok[0, :L] = prompt
+                logits, caches, bounds = admit_f(r.params, tok, L)
             synchronize(self.device)
-            self._calibrate(time.perf_counter() - t0, L)  # nk: allow[NK02]
+            if not self._calibrated:
+                # warm second run prices THIS HOST's recompute throughput
+                # for the hand-off planner, exactly like
+                # DecodeSession.prefill
+                with timing.timed("admit.calibrate") as cal:
+                    admit_f(r.params, tok, L)
+                    synchronize(self.device)
+                self._calibrate(cal.wall, L)
+            with timing.span("admit.rows"):
+                return self._admit_rows(tok, L, logits, caches, bounds, sid)
+
+    def _admit_rows(self, tok, L: int, logits, caches, bounds,
+                    sid: Optional[str]) -> str:
+        """Write an admitted prompt's prefill into a free slot."""
         with self._lock:
             j = self._find_slot()
             slot = self._slots[j]
@@ -378,9 +394,10 @@ class SessionManager:
         round trip exercises the hand-off representation; its buffers are
         ``bytes`` of its own (a parked session outlives the host blocks
         a hand-off's buffers hold)."""
-        with self._lock:
-            self._park(self._slot_index(sid))
-            self._sync_slots()
+        with timing.span("evict"):
+            with self._lock:
+                self._park(self._slot_index(sid))
+                self._sync_slots()
 
     def _slot_index(self, sid: str) -> int:    # holds: _lock
         for slot in self._slots:
@@ -388,30 +405,40 @@ class SessionManager:
                 return slot.index
         raise KeyError(f"no live session {sid!r}")
 
-    def _park(self, j: int) -> None:    # holds: _lock
-        slot = self._slots[j]
+    def _park_copy(self, j: int, pos: int) -> dict:    # holds: _lock
+        """Slot ``j``'s state, tokens, boundary checkpoints and logits at
+        context ``pos``, copied to the host."""
         state: Dict[str, tuple] = {}
         for unit in self.runner.units:
             for k in _unit_state_keys(self.cfg, unit):
                 t = _read_row(self.cache[k], j, self.device)
                 if _is_kv(k):                    # row KV: (KH, S, hd)
-                    t = t[:, :slot.pos]
+                    t = t[:, :pos]
                 dtype, shape, buf = _payload_entry(t)
                 state[k] = (dtype, shape, bytes(buf))
-        self._parked[slot.sid] = {
+        return {
             "state": state,
             # host copies (on a CPU pool ``.cpu()`` alone would alias the
             # slot buffers this method zeroes next)
-            "tokens": self._tokens[j, :slot.pos].to("cpu", copy=True),
-            "bounds": self._bounds[:, j, :slot.pos].to("cpu", copy=True),
+            "tokens": self._tokens[j, :pos].to("cpu", copy=True),
+            "bounds": self._bounds[:, j, :pos].to("cpu", copy=True),
             "logits": self.last_logits[j].to("cpu", copy=True),
-            "pos": slot.pos,
+            "pos": pos,
         }
-        for v in self.cache.values():
-            _zero_row(v, j)
-        self._tokens[j] = 0
-        self._bounds[:, j] = 0
-        self.last_logits[j] = 0
+
+    def _park(self, j: int) -> None:    # holds: _lock
+        slot = self._slots[j]
+        with timing.span("park", pos=slot.pos):
+            with timing.span("park.copy"):
+                parked = self._park_copy(j, slot.pos)
+                timing.count("d2h_bytes", _parked_bytes(parked))
+            self._parked[slot.sid] = parked
+            with timing.span("park.zero"):
+                for v in self.cache.values():
+                    _zero_row(v, j)
+                self._tokens[j] = 0
+                self._bounds[:, j] = 0
+                self.last_logits[j] = 0
         self.epoch += 1
         slot.sid, slot.live, slot.pos, slot.epoch = None, False, 0, -1
 
@@ -551,10 +578,13 @@ class SessionManager:
             return
         r = self.runner
         fn = r.recompute_fn(u0, u1)          # runner lock first (42 < 47)
-        with self.arena.use((u0, u1)):
+        with self.arena.use((u0, u1)), \
+                timing.span("handoff.recompute") as sp:
             with self._lock:
                 x0 = self._bounds[u0]                    # (B, max_seq, D)
                 lengths = self._pos_dev.clone()
+                sp.set(rows=self.num_slots * self.max_seq,
+                       live_rows=sum(s.pos for s in self._slots if s.live))
             caches = fn(r.params, x0, lengths)
             synchronize(self.device)
         with self._lock:
