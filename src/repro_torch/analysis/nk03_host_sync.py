@@ -28,7 +28,13 @@ class in its module) — flagging
   literal, a ``.shape``, ``len()``, ``.size()``, ``.numel()``, ``.dim()``,
   ``.element_size()``, ``.stride()``, or arithmetic and comparisons of
   them), and any call named ``synchronize*`` (``torch.cuda.synchronize``,
-  the port's ``device.synchronize`` and ``tp.synchronize_mesh``).
+  the port's ``device.synchronize`` and ``tp.synchronize_mesh``);
+* **host-built tensors sent to the device**: ``torch.from_numpy(...)``,
+  ``torch.tensor(...)`` or ``torch.as_tensor(...)`` given ``device=``, or
+  followed by ``.to(<device>)`` (chained, or through a name the function
+  assigned it to).  The copy from pageable host memory waits on the card
+  mid-step, and a CUDA graph cannot capture it: build such a table once
+  on the device.
 
 A sync that is the point (a counter read off the device, an integer
 position that arrives from the host) is annotated
@@ -51,11 +57,49 @@ SYNC_METHODS = frozenset({"item", "tolist", "cpu", "numpy"})
 COERCIONS = frozenset({"float", "int", "bool"})
 # calls whose result is a host value, whatever their receiver
 HOST_METHODS = frozenset({"size", "numel", "dim", "element_size", "stride"})
+# constructors of a tensor from host data
+HOST_BUILDERS = frozenset({"torch.from_numpy", "torch.tensor",
+                           "torch.as_tensor"})
+DTYPES = frozenset({"float", "double", "half", "bfloat16", "float16",
+                    "float32", "float64", "int", "long", "short", "bool",
+                    "int8", "int16", "int32", "int64", "uint8", "cfloat",
+                    "complex64", "complex128"})
 ROOT_DECORATORS = frozenset({"counted_kernel"})
 STEP_FACTORY = re.compile(r"^(_make_\w*_fn|stage_executable)$")
 MAX_DEPTH = 2
 
 FuncDef = (ast.FunctionDef, ast.AsyncFunctionDef)
+
+
+def _host_built(node: ast.expr, aliases: Dict[str, str],
+                host_names: Set[str]) -> bool:
+    """A tensor built from host data (``HOST_BUILDERS``), or a name the
+    function bound to one."""
+    if isinstance(node, ast.Name):
+        return node.id in host_names
+    if not isinstance(node, ast.Call):
+        return False
+    name = dotted_name(node.func)
+    if name is None or "." not in name:
+        return False
+    head, tail = name.split(".", 1)
+    return f"{aliases.get(head, head)}.{tail}" in HOST_BUILDERS
+
+
+def _dtype_arg(node: ast.expr) -> bool:
+    """A ``.to()`` argument that names a dtype, not a device."""
+    name = dotted_name(node)
+    if name is None:
+        return False
+    last = name.split(".")[-1]
+    return last in DTYPES or last.endswith("dtype")
+
+
+def _to_device(node: ast.Call) -> bool:
+    """A ``.to(...)`` call that names a device (or a tensor's)."""
+    if any(k.arg == "device" for k in node.keywords):
+        return True
+    return any(not _dtype_arg(a) for a in node.args)
 
 
 def _host_value(node: ast.expr) -> bool:
@@ -168,10 +212,14 @@ class HostSyncRule(Rule):
             return
         seen.add(key)
         aliases = import_aliases(module.tree)
+        host_names = {t.id for node in ast.walk(fn)
+                      if isinstance(node, ast.Assign)
+                      and _host_built(node.value, aliases, set())
+                      for t in node.targets if isinstance(t, ast.Name)}
         for node in ast.walk(fn):
             if not isinstance(node, ast.Call):
                 continue
-            msg = self._violation(node, aliases)
+            msg = self._violation(node, aliases, host_names)
             if msg is not None:
                 findings.append(module.finding(self, node, msg))
                 continue
@@ -183,7 +231,21 @@ class HostSyncRule(Rule):
                                  seen, findings)
 
     @staticmethod
-    def _violation(node: ast.Call, aliases: Dict[str, str]) -> Optional[str]:
+    def _violation(node: ast.Call, aliases: Dict[str, str],
+                   host_names: Set[str] = frozenset()) -> Optional[str]:
+        if _host_built(node, aliases, set()) and \
+                any(k.arg == "device" for k in node.keywords):
+            return (f"{dotted_name(node.func)}(..., device=) on the "
+                    f"per-step path copies host data to the device: a "
+                    f"pageable copy waits on the card every step and no "
+                    f"CUDA graph can capture it; build it once there")
+        if isinstance(node.func, ast.Attribute) and node.func.attr == "to" \
+                and _host_built(node.func.value, aliases, host_names) \
+                and _to_device(node):
+            return ("a host-built tensor .to(<device>) on the per-step "
+                    "path: a pageable copy waits on the card every step "
+                    "and no CUDA graph can capture it; build it once on "
+                    "the device")
         name = dotted_name(node.func)
         if name is not None:
             head = name.split(".")[0]

@@ -33,11 +33,24 @@ Where the port differs from the reference, and why:
   downtimes are made of these walls.
 * **In-place state.**  A decode step writes its token's K/V into the
   layer's cache at the decode position in place (a mamba layer's conv and
-  SSM state are small and come back as new tensors), and the session writes
-  each step's token and boundary activations into device buffers
-  preallocated at ``max_seq``: the reference concatenates its history
-  on the host every step, which at full width would copy hundreds of MB
-  per token.  Snapshots therefore copy.
+  SSM state come back as new tensors, which the commit copies into the
+  session's entries), and the session writes each step's token and
+  boundary activations into device buffers preallocated at ``max_seq``:
+  the reference concatenates its history on the host every step, which
+  at full width would copy hundreds of MB per token.  Every writer of the
+  state (a step's commit, an import, a recompute) writes into the
+  entries where they lie (``write_state``), so an entry keeps its address
+  for the session's life; only ``restore`` and a mesh's ``reshard``
+  rebind.  Snapshots therefore copy.
+* **CUDA graphs.**  On one CUDA device (no mesh), each of a pipeline's
+  two decode stages (the embedding and layers ``[0, split)``; layers
+  ``[split, L)`` and the head) is captured as a CUDA graph at its first
+  step on the serving thread and replayed every step after
+  (``core.graphs``): a step is then two replays instead of thousands of
+  launches.  The captured stage writes conv and SSM state into the
+  session's entries inside the graph; a guard recaptures when an entry
+  has moved, and a stage whose capture raises runs eagerly.  The CPU
+  route and a mesh's stages run the eager callables.
 * **The position stays on the device.**  ``step_pos`` is an int32 device
   tensor; the decode path and the flash-decode kernel read it there and
   never wait on the host.  The host keeps its own integer ``pos`` for
@@ -87,6 +100,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.concurrency import (RANK_SESSION, RANK_STATEFUL_RUNNER,
                                           guarded_by, make_lock)
+from repro_torch.core.graphs import StageGraph, addresses
 from repro_torch.core.hardware import CLOUD_SPEC, EDGE_SPEC
 from repro_torch.core.heap import freeze_startup_heap
 from repro_torch.core.network import NetworkModel
@@ -434,7 +448,8 @@ class StatefulStageRunner:
         return int(param_bytes(self.params) * frac)
 
     # -- one decoder unit, one token ------------------------------------
-    def _decode_unit(self, params, unit, x, cache, new, operands, rope):
+    def _decode_unit(self, params, unit, x, cache, new, operands, rope,
+                     in_place=False):
         cfg = self.cfg
         kind, idx = unit
         if not _is_attn_unit(cfg, unit):
@@ -444,6 +459,10 @@ class StatefulStageRunner:
             y, nc = SSM.ssm_block(cfg, lp["mamba"], h,
                                   {"conv": cache[ck], "ssm": cache[sk]},
                                   impl=self._ssm_impl)
+            if in_place:        # the layer's new state into its entries
+                cache[ck].copy_(nc["conv"])
+                cache[sk].copy_(nc["ssm"])
+                nc = {"conv": cache[ck], "ssm": cache[sk]}
             new[ck], new[sk] = nc["conv"], nc["ssm"]
             return x + y
         kk, vk = _unit_state_keys(cfg, unit)
@@ -465,7 +484,11 @@ class StatefulStageRunner:
         ff, _ = T.feed_forward(cfg, p, T._apply_norm(cfg, p["ln2"], x))
         return x + ff
 
-    def _make_decode_fn(self, u0: int, u1: int):
+    def _make_decode_fn(self, u0: int, u1: int, in_place: bool = False):
+        """The decode callable over units [u0, u1): ``(x, new, bounds)``.
+        ``in_place``: each mamba layer copies its new conv and SSM state
+        into the cache's entries as it ends (the form a CUDA graph
+        captures: the temporaries of one layer serve the next)."""
         units = self.units[u0:u1]
         attends = self._has_attention(units)
 
@@ -478,7 +501,7 @@ class StatefulStageRunner:
             for unit in units:
                 bounds.append(x)
                 x = self._decode_unit(params, unit, x, cache, new, operands,
-                                      rope)
+                                      rope, in_place)
             b = torch.stack(bounds) if bounds \
                 else x.new_zeros((0,) + tuple(x.shape))
             return x, new, b
@@ -595,6 +618,7 @@ class StatefulStageRunner:
         each unit's input, masked the same way."""
         cfg = self.cfg
         B, CL = x.shape[:2]
+        # nk: allow[NK03]: a hand-off's host length, once a recompute
         length = torch.as_tensor(length, device=x.device)
         ar = torch.arange(CL, device=x.device)
         if length.dim() == 0:
@@ -767,6 +791,48 @@ class StatefulStageRunner:
 # ---------------------------------------------------------------------------
 # decode session: the stream's state
 # ---------------------------------------------------------------------------
+
+def _fits(old, shape, v) -> bool:
+    """Whether ``v`` can be copied into the entry ``old`` of ``shape``."""
+    return type(old) is torch.Tensor and type(v) is torch.Tensor \
+        and tuple(old.shape) == tuple(shape) and old.dtype == v.dtype \
+        and old.device == v.device
+
+
+def write_state(cache: Dict[str, Any], entries: Dict[str, Any]) -> None:
+    """Write ``entries`` into the state ``cache`` where its entries lie: a
+    tensor of an entry's shape, dtype and device is copied into it (a
+    captured decode stage reads and writes the entry at that address);
+    anything else (a new entry, a ``tp.ShardedTensor`` on either side, a
+    payload of another dtype) is bound in its place."""
+    for k, v in entries.items():
+        old = cache.get(k)
+        if old is v:
+            continue
+        if _fits(old, v.shape, v):
+            old.copy_(v)
+        else:
+            cache[k] = v
+
+
+def write_imported(cache: Dict[str, Any],
+                   decoded: Dict[str, torch.Tensor]) -> None:
+    """Write a decoded hand-off payload into the state ``cache``: a KV
+    entry as its first ``t.shape[2]`` rows ``t`` and zeros after them,
+    recurrent state whole; in place where ``write_state`` would copy."""
+    for k, t in decoded.items():
+        if not _is_kv(k):
+            write_state(cache, {k: t})
+            continue
+        old, n = cache[k], t.shape[2]
+        if _fits(old, tuple(t.shape[:2]) + tuple(old.shape[2:]), t):
+            old[:, :, :n].copy_(t)
+            old[:, :, n:].zero_()
+            continue
+        full = torch.zeros(old.shape, dtype=t.dtype, device=t.device)
+        full[:, :, :n] = t
+        cache[k] = full
+
 
 class RecomputeArena:
     """A private pool of PyTorch's caching allocator for the next
@@ -963,11 +1029,13 @@ class DecodeSession:
 
     def commit_step(self, token, new_state: Dict[str, Any], bounds,
                     logits) -> None:
-        """Land one decode step: state updates, token and boundary
-        checkpoints written at ``pos``, epoch bump."""
+        """Land one decode step: state updates written into the entries
+        (``write_state``), token and boundary checkpoints written at
+        ``pos``, epoch bump.  ``logits`` is kept as it is: pass a tensor
+        the caller will not overwrite."""
         with self._lock:
             p = self.pos
-            self.cache.update(new_state)
+            write_state(self.cache, new_state)
             self._tokens[:, p] = _as_tokens(token, self.device).reshape(-1)
             self._bounds[:, :, p] = bounds[:, :, 0]
             self.last_logits = logits
@@ -1040,9 +1108,9 @@ class DecodeSession:
                                    f"{crc:#010x} != bytes {actual:#010x}")
 
     def import_layers(self, payload: Dict[str, tuple]) -> None:
-        """Deserialize an ``export_layers`` payload back into the state:
-        each sliced KV entry lands in a fresh zero buffer of the cache's
-        shape (one host-to-device copy), recurrent state as it is.
+        """Deserialize an ``export_layers`` payload back into the state,
+        written into the entries where they lie: each sliced KV entry as
+        its live rows and zeros after them, recurrent state as it is.
         Validates and decodes every entry BEFORE committing anything, so
         on corruption the session state is untouched."""
         self.validate_payload(payload)
@@ -1056,19 +1124,12 @@ class DecodeSession:
             raise HandoffCorrupted(f"undecodable hand-off entry "
                                    f"{k!r}: {e}") from None
         with self._lock:
-            for k, t in decoded.items():
-                if not _is_kv(k):
-                    self.cache[k] = t.to(self.device)
-                    continue
-                full = torch.zeros(self.cache[k].shape, dtype=t.dtype,
-                                   device=self.device)
-                full[:, :, :t.shape[2]] = t.to(self.device)
-                self.cache[k] = full
+            write_imported(self.cache, decoded)
 
     def recompute_layers(self, lo: int, hi: int) -> None:
         """Re-prefill layers [lo, hi) over the full live context from the
         boundary checkpoint entering layer ``lo`` (measured by the
-        caller), padded to ``max_seq``."""
+        caller), padded to ``max_seq``, into the entries where they lie."""
         u0 = unit_index_of_split(self.cfg, lo)
         u1 = unit_index_of_split(self.cfg, hi)
         if u0 >= u1:
@@ -1082,9 +1143,9 @@ class DecodeSession:
             sp.set(rows=self.batch * r.max_seq, live_rows=self.batch * T_len)
             x_pad[:, T_len:] = 0
             caches = r.recompute_fn(u0, u1)(r.params, x_pad, T_len)
+            with self._lock:
+                write_state(self.cache, caches)
             synchronize(self.device)
-        with self._lock:
-            self.cache.update(caches)
 
     def replace_state(self, entries: Dict[str, Any]) -> None:
         """Swap state buffers wholesale: the mesh-reshard path, where the
@@ -1159,7 +1220,17 @@ class StatefulEdgeCloudPipeline:
     slot pool's state is placed by its first step on the mesh (``reshard``
     moves none of it, as the reference's moves none) and its rows are
     written per shard (``tp.ShardedTensor.write_row``).  The edge stage
-    stays on one device."""
+    stays on one device.
+
+    On one CUDA device (no mesh) each stage is a ``core.graphs.StageGraph``,
+    captured at the stage's first step on the thread that serves and
+    replayed after: the captures of a pipeline never fall inside a
+    repartition (a standby's first step comes after its activation), nor
+    on the build thread beside the serving thread's waits on the card.
+    ``warm`` runs the eager callables on scratch state and binds no
+    graph.  Every stage run is counted: ``graph_replays``,
+    ``graph_captures`` (each in a ``step.capture`` span) and, for a stage
+    run eagerly on the card, ``graph_eager``."""
 
     def __init__(self, runner: StatefulStageRunner, split: int,
                  net: NetworkModel, *,
@@ -1185,6 +1256,9 @@ class StatefulEdgeCloudPipeline:
         self.edge_fn = None
         self.cloud_fn = None
         self.head_fn = None
+        # the stages' CUDA graphs (edge, cloud); None off the card or on a
+        # mesh, where every step runs the eager callables
+        self.graphs: Optional[Tuple[StageGraph, StageGraph]] = None
 
     # -- build -----------------------------------------------------------
     def build(self, sample_inputs=None, *, cold: bool,
@@ -1244,6 +1318,8 @@ class StatefulEdgeCloudPipeline:
                                         x_spec, fresh=cold, mesh=mesh)
         rep.t_compile_cloud = sw.elapsed() - rep.t_reshard
         rep.t_wall = rep.t_weights + sw_wall.elapsed()
+        if dev.type == "cuda" and self.mesh_shape is None:
+            self.graphs = (StageGraph(dev), StageGraph(dev))
         return rep
 
     @property
@@ -1251,6 +1327,10 @@ class StatefulEdgeCloudPipeline:
         return self.edge_fn is not None
 
     def close(self) -> None:
+        if self.graphs is not None:
+            for g in self.graphs:
+                g.reset()
+        self.graphs = None
         self.embed_fn = self.edge_fn = self.cloud_fn = self.head_fn = None
         self.params = self.cloud_params = self.mesh = None
 
@@ -1282,30 +1362,82 @@ class StatefulEdgeCloudPipeline:
         return sum(v.numel() * v.element_size() for v in placed.values())
 
     # -- serve -----------------------------------------------------------
-    def _step(self, token, cache_edge, cache_cloud, pos):
+    def _stage_graphs(self, token, cache_edge, cache_cloud, pos) -> tuple:
+        """The step's (edge, cloud) graphs, each bound to the session's
+        entries it reads and writes, or None for a stage that runs
+        eagerly: off the card, on a mesh, where an entry is not a plain
+        tensor on the card (state a mesh left sharded), or where the
+        stage's capture raised.  A stage with no graph yet, or whose
+        entries moved since its capture, is captured here."""
+        if self.graphs is None:
+            return None, None
+        r = self.runner
+        x_spec = TensorSpec((token.shape[0], 1, r.cfg.d_model),
+                            self.params["embed"].dtype, r.device)
+        ue, ua = self._u_edge, self._u_all
+
+        # the stages as captured: their decode writes the new state into
+        # the entries in place (``_make_decode_fn(in_place=True)``)
+        def edge(i):
+            decode = r._make_decode_fn(0, ue, in_place=True)
+            x = self.embed_fn(self.params, i["token"])
+            xe, _, b = decode(self.params, x, cache_edge, i["pos"])
+            return xe, b
+
+        def cloud(i):
+            decode = r._make_decode_fn(ue, ua, in_place=True)
+            xc, _, b = decode(self.cloud_params, i["x"], cache_cloud,
+                              i["pos"])
+            return self.head_fn(self.cloud_params, xc), b
+
+        out = []
+        for g, state, run, inputs in (
+                (self.graphs[0], cache_edge, edge,
+                 {"token": token, "pos": pos}),
+                (self.graphs[1], cache_cloud, cloud,
+                 {"x": x_spec, "pos": pos})):
+            bound = addresses(state)
+            usable = g.refused is None and bound is not None and (
+                g.matches(bound, inputs) or g.capture(run, bound, inputs))
+            out.append(g if usable else None)
+        return tuple(out)
+
+    def _step(self, token, cache_edge, cache_cloud, pos, graphs=(None, None)):
         """One decode step through both stages; returns everything the
-        session needs to commit, plus the measured stage timing.  State
-        left on a mesh that this pipeline does not run on (a slot pool's
-        after a switch off the mesh) is brought back to the device first,
-        as the reference pulls it back; a mesh stage places whole entries
-        on its first step."""
+        session needs to commit, plus the measured stage timing.  A stage
+        given its graph (``_stage_graphs``) replays it, its state written
+        in place; the others run their eager callables.  State left on a
+        mesh that this pipeline does not run on (a slot pool's after a
+        switch off the mesh) is brought back to the device first, as the
+        reference pulls it back; a mesh stage places whole entries on its
+        first step."""
         dev = self.runner.device
+        g_edge, g_cloud = graphs
         with timing.span("step.gather"):
             cache_edge = {k: TP.whole(v, dev) for k, v in cache_edge.items()}
             if self.mesh is None:
                 cache_cloud = {k: TP.whole(v, dev)
                                for k, v in cache_cloud.items()}
         with timing.timed("step.edge") as edge:
-            with timing.span("step.embed"):
-                x = self.embed_fn(self.params, token)
-            xe, new_e, b_e = self.edge_fn(self.params, x, cache_edge, pos)
+            if g_edge is not None:
+                xe, b_e = g_edge.replay({"token": token, "pos": pos})
+                new_e = {}
+            else:
+                with timing.span("step.embed"):
+                    x = self.embed_fn(self.params, token)
+                xe, new_e, b_e = self.edge_fn(self.params, x, cache_edge,
+                                              pos)
             synchronize(dev)
         t_transfer = self.net.transfer_time(xe.numel() * xe.element_size())
         with timing.timed("step.cloud") as cloud:
-            xc, new_c, b_c = self.cloud_fn(self.cloud_params, xe,
-                                           cache_cloud, pos)
-            with timing.span("step.head"):
-                logits = self.head_fn(self.cloud_params, xc)
+            if g_cloud is not None:
+                logits, b_c = g_cloud.replay({"x": xe, "pos": pos})
+                logits, new_c = logits.clone(), {}
+            else:
+                xc, new_c, b_c = self.cloud_fn(self.cloud_params, xe,
+                                               cache_cloud, pos)
+                with timing.span("step.head"):
+                    logits = self.head_fn(self.cloud_params, xc)
             if self.mesh is None:
                 synchronize(dev)
             else:
@@ -1331,16 +1463,22 @@ class StatefulEdgeCloudPipeline:
                 token = s.next_token()
             token = _as_tokens(token, self.runner.device)
             pos = s.step_pos()
+            cache_edge = s.subset(0, self._u_edge)
+            cache_cloud = s.subset(self._u_edge, self._u_all)
+            graphs = self._stage_graphs(token, cache_edge, cache_cloud, pos)
+            if self.runner.device.type == "cuda" and None in graphs:
+                timing.count("graph_eager", graphs.count(None))
             logits, new, bounds, stage_timing = self._step(
-                token, s.subset(0, self._u_edge),
-                s.subset(self._u_edge, self._u_all), pos)
+                token, cache_edge, cache_cloud, pos, graphs)
             with timing.span("step.commit"):
                 s.commit_step(token, new, bounds, logits)
         return logits, stage_timing
 
     def warm(self, sample_inputs=None) -> RequestTiming:
         """Throwaway forward on SCRATCH state: absorbs the first-execution
-        spike without advancing (or touching) the live session."""
+        spike without advancing (or touching) the live session.  Runs the
+        eager callables: no graph is captured, none is bound to scratch
+        buffers."""
         s = self.session
         dev = self.runner.device
         zeros = lambda t: {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)

@@ -22,10 +22,14 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the card's queued work (a no-op on the CPU), so a host
-    clock read after it measures the work and not only its launches.
-    Recorded as a ``wait`` span and counted as ``syncs``, on the CPU too."""
+    """Wait for the card's queued work on the current stream, where the
+    port launches all of it (a no-op on the CPU), so a host clock read
+    after it measures the work and not only its launches.  Not the whole
+    device: while the serving thread captures a decode stage in a CUDA
+    graph (``core.graphs``), a wait on the device from another thread (a
+    standby build's) would be refused.  Recorded as a ``wait`` span and
+    counted as ``syncs``, on the CPU too."""
     with timing.span("wait"):
         timing.count("syncs")
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()

@@ -105,12 +105,13 @@ def _on(device: torch.device):
 
 
 def synchronize_mesh(mesh: CloudMesh) -> None:
-    """Wait for every card of the mesh: one ``wait`` span, one ``syncs``."""
+    """Wait for every card of the mesh, each on its current stream (as
+    ``device.synchronize``): one ``wait`` span, one ``syncs``."""
     with timing.span("wait"):
         timing.count("syncs")
         for d in set(mesh.devices):
             if d.type == "cuda":
-                torch.cuda.synchronize(d)
+                torch.cuda.current_stream(d).synchronize()
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.op_analysis import counted_kernel
+from repro_torch.kernels import launched
 
 BLOCK_Q = 64                # query rows a work item (kBQ in the .cu)
 BLOCK_K = 64                # keys a shared-memory tile (kBK in the .cu)
@@ -275,7 +276,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
-    flash_attention.launches += 1
+    launched(flash_attention)
     return out
 
 

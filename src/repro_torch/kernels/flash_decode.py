@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.op_analysis import counted_kernel
+from repro_torch.kernels import launched
 
 ALIGN_K = 16                # a slice starts at a multiple of this many
                             # keys (kAlign in the .cu)
@@ -132,6 +133,7 @@ def flash_decode_attention_plain(q, k_cache, v_cache, *, pos):
     B, _, H, D = q.shape
     KH, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
+    # nk: allow[NK03]: a step's pos is a device tensor, passed through
     pos = torch.as_tensor(pos, device=q.device).reshape(-1)
     if pos.numel() == 1:
         pos = pos.expand(B)
@@ -247,7 +249,7 @@ def flash_decode_attention(q, k_cache, v_cache, *, pos):
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: "
                            f"cudaError_t {err}")
-    flash_decode_attention.launches += 1
+    launched(flash_decode_attention)
     return out
 
 

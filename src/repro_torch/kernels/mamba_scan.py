@@ -38,6 +38,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.distributed.op_analysis import counted_kernel
+from repro_torch.kernels import launched
 
 CHUNK = 64                  # steps a chunk (kL in the .cu)
 TILE_S = 32                 # time steps staged a tile (kTS in the .cu)
@@ -246,7 +247,7 @@ def mamba1_scan(dt, Bc, Cc, x, A, h0=None):
     if err != 0:
         raise RuntimeError(f"mamba1_scan kernel launch failed: "
                            f"cudaError_t {err}")
-    mamba1_scan.launches += 1
+    launched(mamba1_scan)
     return y, h
 
 

@@ -39,6 +39,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.distributed.op_analysis import counted_kernel
+from repro_torch.kernels import launched
 
 THREADS = 256               # sequential kernel's threads (kThreads)
 CHUNK = 64                  # steps a chunk (kL in the .cu)
@@ -264,7 +265,7 @@ def ssd_scan(dt, Bc, Cc, x, A, h0=None):
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"cudaError_t {err}")
-    ssd_scan.launches += 1
+    launched(ssd_scan)
     return y, h
 
 

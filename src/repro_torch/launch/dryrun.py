@@ -245,6 +245,9 @@ def count_step(cfg, shape, *, remat: bool = True) -> dict:
     one decode token against a full cache."""
     params = T.init_model(cfg, dtype=DTYPE, device="meta")
     specs, cache = input_specs(cfg, shape, dtype=DTYPE)
+    # the rope table is built once a process (``layers.rope_inv_freq``),
+    # not by a step: build it before the counter opens, whatever ran first
+    T._rope_for(cfg, 1, device="meta")
     if shape.kind == "train":
         step, init_opt = make_train_step(cfg, remat=remat)
         opt = init_opt(params)

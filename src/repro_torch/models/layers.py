@@ -23,7 +23,7 @@ No library attention is used.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,11 +57,30 @@ def layer_norm(x, scale, bias, eps=1e-5):
 # RoPE
 # ---------------------------------------------------------------------------
 
+_INV_FREQ: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rope_inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    """RoPE's inverse frequencies ``1 / theta ** (2i / head_dim)``, the
+    reference's formula in f64 on the host cast to f32, built once per
+    ``(head_dim, theta, device)`` and kept there: a decode step reads the
+    table on the device and copies nothing from the host (a pageable copy
+    would wait on the card mid-step and could not be captured in a CUDA
+    graph)."""
+    key = (int(head_dim), float(theta), torch.device(device))
+    table = _INV_FREQ.get(key)
+    if table is None:
+        host = torch.from_numpy(
+            (1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim)))
+            .astype(np.float32))
+        # nk: allow[NK03]: once per (head_dim, theta, device), then cached
+        table = _INV_FREQ.setdefault(key, host.to(device))
+    return table
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """positions: (...,) int -> cos/sin (..., head_dim/2), f32."""
-    inv_freq = torch.from_numpy(
-        (1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim)))
-        .astype(np.float32)).to(positions.device)
+    inv_freq = rope_inv_freq(head_dim, theta, positions.device)
     ang = positions[..., None].float() * inv_freq
     return torch.cos(ang), torch.sin(ang)
 

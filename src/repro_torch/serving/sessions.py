@@ -84,7 +84,8 @@ from repro_torch.core.stateful import (HANDOFF_META_KEY, HandoffCorrupted,
                                        _from_payload, _is_kv,
                                        _payload_entry, _unit_state_keys,
                                        payload_checksum,
-                                       unit_index_of_split, warm_host_blocks)
+                                       unit_index_of_split, warm_host_blocks,
+                                       write_imported, write_state)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed import tp as TP
 from repro_torch.models import transformer as T
@@ -250,9 +251,10 @@ class SessionManager:
 
     def commit_step(self, token, new_state: Dict[str, Any], bounds,
                     logits) -> None:
-        """Land one whole-batch decode step: state buffers swap to the
-        new batch, but tokens/bounds/logits commit per LIVE slot only —
-        dead rows' garbage never reaches the bookkeeping buffers, so the
+        """Land one whole-batch decode step: the new batch's state is
+        written into the state buffers where they lie (``write_state``),
+        but tokens/bounds/logits commit per LIVE slot only — dead rows'
+        garbage never reaches the bookkeeping buffers, so the
         zero-beyond-prefix invariant survives."""
         with self._lock:
             live = [s for s in self._slots if s.live]
@@ -261,7 +263,7 @@ class SessionManager:
                     raise RuntimeError(
                         f"slot {slot.sid!r} context full ({slot.pos} >= "
                         f"max_seq {self.max_seq})")
-            self.cache.update(new_state)
+            write_state(self.cache, new_state)
             self.epoch += 1
             if live:
                 idx = self._live_idx
@@ -544,9 +546,10 @@ class SessionManager:
                                    f"{crc:#010x} != bytes {actual:#010x}")
 
     def import_layers(self, payload: Dict[str, tuple]) -> None:
-        """Deserialize a batch export back into the pool; validates and
-        fully decodes BEFORE committing (corruption leaves the pool
-        pristine for the recompute fallback)."""
+        """Deserialize a batch export back into the pool, written into
+        the state buffers where they lie; validates and fully decodes
+        BEFORE committing (corruption leaves the pool pristine for the
+        recompute fallback)."""
         self.validate_payload(payload)
         decoded: Dict[str, torch.Tensor] = {}
         try:
@@ -558,14 +561,7 @@ class SessionManager:
             raise HandoffCorrupted(f"undecodable hand-off entry "
                                    f"{k!r}: {e}") from None
         with self._lock:
-            for k, t in decoded.items():
-                if not _is_kv(k):
-                    self.cache[k] = t.to(self.device)
-                    continue
-                full = torch.zeros(self.cache[k].shape, dtype=t.dtype,
-                                   device=self.device)
-                full[:, :, :t.shape[2]] = t.to(self.device)
-                self.cache[k] = full
+            write_imported(self.cache, decoded)
 
     def recompute_layers(self, lo: int, hi: int) -> None:
         """Rebuild layers [lo, hi) for EVERY slot from the per-slot
@@ -586,9 +582,9 @@ class SessionManager:
                 sp.set(rows=self.num_slots * self.max_seq,
                        live_rows=sum(s.pos for s in self._slots if s.live))
             caches = fn(r.params, x0, lengths)
+            with self._lock:
+                write_state(self.cache, caches)
             synchronize(self.device)
-        with self._lock:
-            self.cache.update(caches)
 
     def warm_recompute(self, a: int, b: int) -> None:
         """Run the re-prefill of the layers between splits ``a`` and ``b``

@@ -373,6 +373,53 @@ def test_nk03_cross_module_and_suppression():
                  "src/repro_torch/k.py": root}) == []
 
 
+NK03_HOST_COPY = '''
+import numpy as np
+import torch
+import torch as T
+
+def rope(pos, hd):
+    inv = torch.from_numpy(np.arange(hd).astype(np.float32)).to(pos.device)
+    return pos[..., None] * inv
+
+class Runner:
+    def _make_decode_fn(self, u0, u1):
+        def fn(params, x, cache, pos):
+            a = torch.tensor([1, 2], device=x.device)
+            b = T.as_tensor(np.ones(3), device="cuda")
+            host = torch.from_numpy(np.ones(3, np.float32))
+            c = host.to(x)
+            d = host.to(torch.float16) + host.to(dtype=x.dtype)
+            e = torch.tensor([1.0]).to(device=x.device)
+            f = torch.tensor([1.0]).to(torch.bfloat16)
+            return rope(pos, 8) + a + b + c + d + e + f
+        return fn
+'''
+
+
+@pytest.mark.parametrize("case,lines", [
+    ("as_written", [7, 13, 14, 16, 18]),
+    ("allowed", [13, 14, 16, 18]),
+    ("built_once", [13, 14, 16, 18]),
+])
+def test_nk03_flags_host_built_tensors_sent_to_the_device(case, lines):
+    """A host-built tensor given ``device=`` or sent ``.to(<device>)``
+    (chained, or through a name) on the per-step path, as
+    ``layers.rope_cos_sin`` built its table each step; a ``.to(<dtype>)``
+    passes, and so does an annotated site or a table built elsewhere."""
+    src = NK03_HOST_COPY
+    if case == "allowed":
+        src = src.replace(".to(pos.device)\n",
+                          ".to(pos.device)  # nk: allow[NK03]: once\n")
+    elif case == "built_once":
+        src = src.replace("    inv = torch.from_numpy(np.arange(hd)"
+                          ".astype(np.float32)).to(pos.device)\n",
+                          "    inv = TABLE[hd]\n")
+    fs = nk03({"src/repro_torch/core/r.py": src})
+    assert [f.line for f in fs] == lines, [f.render() for f in fs]
+    assert all("device" in f.message for f in fs)
+
+
 # -- the port's own tree ---------------------------------------------------
 
 def test_port_tree_is_clean_without_a_baseline(monkeypatch):

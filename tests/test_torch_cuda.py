@@ -1081,3 +1081,206 @@ def test_mamba_layers_on_the_mesh_match_one_device(cuda, arch, dtype):
         mgr.close()
     finally:
         reset_mesh_devices()
+
+
+# -- decode stages as CUDA graphs (core/graphs.py) -------------------------
+
+def _eager(mgr):
+    """Take the stage graphs off every pipeline of ``mgr``'s pool: its
+    steps run the eager callables, the twin a graphed pool is held to."""
+    for key in list(mgr.pool.keys()):
+        entry = mgr.pool.get(key)
+        if entry is not None:
+            entry.pipeline.graphs = None
+
+
+def _traced(fn):
+    """``fn()`` with the span recorder on."""
+    from repro_torch.core import timing
+    timing.tracing(True)
+    try:
+        return fn()
+    finally:
+        timing.tracing(False)
+
+
+KERNELS = (MS.mamba1_scan, SD.ssd_scan, FD.flash_decode_attention,
+           FA.flash_attention)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_graphed_pool_steps_equal_eager_steps(cuda, arch):
+    """A reduced ssm / hybrid 4-slot pool in bf16 whose decode stages are
+    CUDA graphs, against its twin on the eager callables, over 64 steps
+    through admissions, evictions, a readmission, a switch_b2 on the
+    recompute arm, a switch_a on the transfer arm (its standby re-armed on
+    the build thread while the pool steps) and an entry rebound by hand:
+    every step's logits, launches and the final state bit-equal; every
+    stage run a replay (``graph_eager`` 0), a capture at each served
+    pipeline's first step and at the rebound entry's stage only, none
+    inside a repartition; ``warm`` binds no graph."""
+    from repro_torch.core import timing
+    from repro_torch.serving import make_session_manager
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4)
+    params = init_model(cfg, device=cuda, dtype=torch.bfloat16, seed=2)
+    kw = dict(split=2, net=NetworkModel(1000.0), num_slots=4, max_seq=128,
+              attn_impl="kernel", device=cuda)
+    gm, g = make_session_manager(cfg, params, **kw)
+    em, e = make_session_manager(cfg, params, **kw)
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+               for n in (9, 20, 5, 14, 30)]
+
+    def both(op):
+        a = _traced(lambda: op(gm, g))
+        _eager(em)
+        b = op(em, e)
+        return a, b
+
+    def switch(strategy, split, arm):
+        def op(m, s):
+            if strategy == "switch_a":
+                m.build_standby(split)
+            m.pool.force_mode = arm
+            rep = m.repartition(strategy, split)
+            assert rep.handoff_mode == arm
+        return op
+
+    def rebind(m, s):
+        if s is g:          # one entry of the cloud stage moves
+            k = sorted(s.subset(m.active._u_edge, m.active._u_all))[0]
+            s.cache[k] = s.cache[k].clone()
+
+    events = {
+        10: lambda m, s: s.evict("s0"),
+        14: lambda m, s: s.admit(prompts[3], sid="s3"),
+        20: lambda m, s: s.evict("s1"),
+        22: lambda m, s: s.readmit("s0"),
+        30: switch("switch_b2", 1, "recompute"),
+        44: switch("switch_a", 3, "transfer"),
+        50: rebind,
+        52: lambda m, s: s.evict("s2"),
+        54: lambda m, s: s.admit(prompts[4], sid="s4"),
+    }
+    timing.take_spans()
+    timing.take_counts()
+    for i, p in enumerate(prompts[:3]):
+        both(lambda m, s: s.admit(p, sid=f"s{i}"))
+    served = set()
+    for i in range(64):
+        if i in events:
+            both(events[i])
+        tok = e.next_token()
+        # a re-armed standby's build launches kernels on the build thread
+        building = gm.pool.pending_builds() or em.pool.pending_builds()
+        before = [k.launches for k in KERNELS]
+        _traced(lambda: gm.active.process({"token": tok}))
+        mid = [k.launches for k in KERNELS]
+        served.add(id(gm.active))
+        _eager(em)
+        em.active.process({"token": tok})
+        after = [k.launches for k in KERNELS]
+        if not building:
+            assert [b - a for a, b in zip(before, mid)] == \
+                [b - a for a, b in zip(mid, after)], i
+            assert mid != before, i
+        assert torch.equal(g.last_logits, e.last_logits), i
+    gm.active.warm()
+    tok = e.next_token()
+    _traced(lambda: gm.active.process({"token": tok}))
+    _eager(em)
+    em.active.process({"token": tok})
+    assert torch.equal(g.last_logits, e.last_logits)
+    gm.drain()
+    em.drain()
+    counts, spans = timing.take_counts(), timing.take_spans()
+    assert counts["graph_replays"] == 2 * 65
+    assert "graph_eager" not in counts
+    assert counts["graph_captures"] == 2 * len(served) + 1
+    captures = [s for s in spans if s["name"] == "step.capture"]
+    switches = [s for s in spans if s["name"] == "switch"]
+    assert len(captures) == counts["graph_captures"] and len(switches) == 2
+    assert not any(c["start"] < w["end"] and w["start"] < c["end"]
+                   for c in captures for w in switches)
+    for k, v in g.cache.items():
+        assert torch.equal(v, e.cache[k]), k
+    for sid in e.session_ids():
+        assert torch.equal(g.tokens_for(sid), e.tokens_for(sid)), sid
+    standby = gm.pool.get(gm.pool.standby_key).pipeline
+    standby.warm()
+    assert all(x.graph is None for x in standby.graphs)
+    gm.close()
+    em.close()
+
+
+def test_mesh_stages_stay_eager_and_a_refused_capture_runs_eagerly(cuda):
+    """Reduced qwen2.5-3b (f32) behind a ``DecodeSession``: moved onto a
+    2-way mesh (both shards on the card) its steps run the eager callables
+    (``graph_eager`` 2 a step, no replay), and back on one device the
+    stages are captured again; a stage whose capture meets a host sync is
+    refused and runs eagerly from then on, its logits equal to an eager
+    twin's, and a later pipeline still captures and replays."""
+    from repro_torch.core import timing
+    from repro_torch.launch.mesh import reset_mesh_devices, set_mesh_devices
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              num_layers=4, num_kv_heads=2)
+    kw = dict(split=2, net=NetworkModel(50.0), prompt_len=8, max_seq=64,
+              seed=3, device=cuda)
+    mgr, s = make_stateful_manager(cfg, **kw)
+    tm, t = make_stateful_manager(cfg, **kw)
+
+    def step():
+        tok = t.next_token()
+        _traced(lambda: mgr.serve({"token": tok}))
+        _eager(tm)
+        tm.serve({"token": tok})
+        assert torch.equal(s.last_logits, t.last_logits)
+        return timing.take_counts()
+
+    timing.take_counts()
+    assert step()["graph_captures"] == 2
+    set_mesh_devices(["cuda:0"] * 2)
+    try:
+        for m in (mgr, tm):
+            m.set_mesh_shape((2,))
+            assert m.repartition("switch_b2", 1).mesh_change
+        assert mgr.active.graphs is None
+        for _ in range(2):
+            c = step()
+            assert c.get("graph_eager") == 2 and "graph_replays" not in c
+        for m in (mgr, tm):
+            m.set_mesh_shape(None)
+            assert m.repartition("switch_b2", 1).mesh_change
+        c = step()
+        assert c["graph_captures"] == 2 and c["graph_replays"] == 2
+    finally:
+        reset_mesh_devices()
+    r = mgr.runner
+    real = r._make_decode_fn
+
+    def syncing(u0, u1, in_place=False):
+        fn = real(u0, u1, in_place)
+
+        def run(params, x, cache, pos):
+            if in_place:
+                pos.max().item()        # a host sync: no capture
+            return fn(params, x, cache, pos)
+        return run
+    r._make_decode_fn = syncing
+    try:
+        for m in (mgr, tm):
+            assert m.repartition("switch_b2", 3).handoff_mode != "none"
+        c = step()
+        assert c["graph_captures"] == 2 and c["graph_eager"] == 2
+        assert all(g.refused for g in mgr.active.graphs)
+        c = step()
+        assert c["graph_eager"] == 2 and "graph_captures" not in c
+    finally:
+        del r._make_decode_fn
+    for m in (mgr, tm):
+        m.repartition("switch_b2", 2)
+    for _ in range(2):
+        c = step()
+    assert c["graph_replays"] == 2 and "graph_eager" not in c
+    mgr.close()
+    tm.close()

@@ -435,3 +435,126 @@ def test_concurrent_admit_evict_readmit_keep_the_slot_table(runner):
     for sid in live:
         info = sm.slot_info(sid)
         assert pos[info.index] == info.pos == sm.tokens_for(sid).shape[0]
+
+
+# -- state keeps its address: what a CUDA graph of a stage binds -----------
+
+@pytest.mark.parametrize("writer", ["step", "import", "recompute"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_pool_state_writers_keep_each_entrys_address(arch, writer):
+    """A step's commit, ``import_layers`` and ``recompute_layers`` write
+    into a slot pool's state buffers where they lie (reduced ssm and
+    hybrid models, 4 layers, 3 slots, two sessions admitted): every entry
+    keeps its ``data_ptr`` (a CUDA graph of a stage binds it) and holds
+    what binding the writer's new tensors in its place gave (the eager
+    stages' new state, the exported pool, the re-prefill's caches)."""
+    from repro_torch.core.stateful import unit_index_of_split
+    tcfg = dataclasses.replace(tget(arch).reduced(), num_layers=4)
+    mgr, sm = make_session_manager(tcfg, split=2, net=NetworkModel(20.0),
+                                   num_slots=3, max_seq=MAX_SEQ,
+                                   device="cpu")
+    for i, p in enumerate(_ragged(tcfg.vocab_size, (7, 12), seed=5)):
+        sm.admit(p, sid=f"s{i}")
+    mgr.active.process()
+    r, pipe = sm.runner, mgr.active
+    ptrs = {k: v.data_ptr() for k, v in sm.cache.items()}
+    want = {k: v.clone() for k, v in sm.cache.items()}
+    if writer == "step":
+        token, pos = sm.next_token(), sm.step_pos()
+        ue, ua = pipe._u_edge, pipe._u_all
+        _, new, _, _ = pipe._step(
+            token, {k: want[k] for k in sm.subset(0, ue)},
+            {k: want[k] for k in sm.subset(ue, ua)}, pos)
+        want.update(new)
+        pipe.process({"token": token})
+    elif writer == "import":
+        payload, _ = sm.export_layers(0, 4)
+        for v in sm.cache.values():
+            v.fill_(7)
+        sm.import_layers(payload)
+    else:
+        u0, u1 = unit_index_of_split(tcfg, 1), unit_index_of_split(tcfg, 3)
+        want.update(r.recompute_fn(u0, u1)(r.params, sm._bounds[u0].clone(),
+                                            sm.step_pos()))
+        sm.recompute_layers(1, 3)
+    assert {k: v.data_ptr() for k, v in sm.cache.items()} == ptrs
+    for k, v in sm.cache.items():
+        assert torch.equal(v, want[k]), k
+    mgr.close()
+
+
+class _RerunGraph:
+    """A stand-in for a stage's CUDA graph on the CPU: ``capture`` keeps
+    the stage function and static inputs without running them (a capture
+    runs nothing), ``replay`` copies the inputs in and runs the stage over
+    the static buffers, as a replay of the captured launches would."""
+
+    def __init__(self):
+        self.refused, self.run, self.captures = None, None, 0
+
+    def matches(self, bound, inputs):
+        return self.run is not None and bound == self.bound \
+            and inputs.keys() == self.inputs.keys()
+
+    def capture(self, run, bound, inputs):
+        from repro_torch.core.stages import abstractify, materialize
+        self.run, self.bound = run, dict(bound)
+        self.inputs = materialize(abstractify(inputs))
+        self.captures += 1
+        return True
+
+    def replay(self, inputs):
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+        return tuple(self.run(self.inputs))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_graph_route_with_a_stand_in_graph_equals_the_eager_route(
+        arch, monkeypatch):
+    """The pipeline's graph route on the CPU, each stage a stand-in that
+    replays the captured in-place stage over its static inputs, against
+    the eager route on the same weights, bit for bit, through an
+    eviction, an admission, a switch on each hand-off arm and an entry
+    rebound by hand (recaptured): what the CUDA graphs replay on the card
+    is the stage written for the capture."""
+    from repro_torch.core import stateful as SF
+    monkeypatch.setattr(SF, "addresses", lambda st: {
+        k: v.data_ptr() for k, v in st.items()})
+    tcfg = dataclasses.replace(tget(arch).reduced(), num_layers=4)
+    params = init_model(tcfg, device="cpu", seed=1)
+    kw = dict(split=2, net=NetworkModel(1000.0), num_slots=3, max_seq=MAX_SEQ,
+              device="cpu")
+    (gm, g), (em, e) = [make_session_manager(tcfg, params, **kw)
+                        for _ in range(2)]
+    prompts = _ragged(tcfg.vocab_size, (5, 9, 13), seed=2)
+    for s in (g, e):
+        for i, p in enumerate(prompts[:2]):
+            s.admit(p, sid=f"s{i}")
+    stand_ins = []
+    for i in range(16):
+        if i == 4:
+            for s in (g, e):
+                s.evict("s0")
+                s.admit(prompts[2], sid="s2")
+        if i in (7, 11):
+            split, arm = (1, "recompute") if i == 7 else (3, "transfer")
+            for m in (gm, em):
+                m.pool.force_mode = arm
+                assert m.repartition("switch_b2", split).handoff_mode == arm
+        if i == 13:
+            k = sorted(g.cache)[-1]
+            g.cache[k] = g.cache[k].clone()
+        if gm.active.graphs is None:
+            gm.active.graphs = (_RerunGraph(), _RerunGraph())
+            stand_ins.extend(gm.active.graphs)
+        tok = e.next_token()
+        a, _ = gm.active.process({"token": tok})
+        b, _ = em.active.process({"token": tok})
+        assert torch.equal(a, b) and torch.equal(g.last_logits,
+                                                 e.last_logits), i
+    for k, v in g.cache.items():
+        assert torch.equal(v, e.cache[k]), k
+    assert sum(x.captures for x in stand_ins) == 2 * 3 + 1
+    gm.close()
+    em.close()

@@ -361,3 +361,102 @@ def test_pool_warms_the_transfer_export():
     rep = mgr.repartition("switch_a", 3)
     assert rep.handoff_mode == "transfer" and rep.handoff_bytes > 0
     mgr.close()
+
+
+# -- state keeps its address: what a CUDA graph of a stage binds -----------
+
+def _ssm_session(arch):
+    """A reduced ssm (falcon-mamba-7b) or hybrid (zamba2-7b) model, 4
+    layers, behind a ``DecodeSession``, one step taken."""
+    cfg = dataclasses.replace(tget(arch).reduced(), num_layers=4)
+    mgr, s = make_stateful_manager(cfg, split=2, net=NetworkModel(20.0),
+                                   prompt_len=PROMPT, max_seq=MAX_SEQ,
+                                   device="cpu")
+    mgr.active.process()
+    return mgr, s
+
+
+def rebound_state(mgr, s, writer):
+    """Run ``writer`` ("step", "import" or "recompute") on the
+    ``DecodeSession`` ``s`` behind ``mgr``; returns what each state entry held where the
+    writer bound its new tensors in the entry's place: the eager stages'
+    new state (run on copies), the exported state, the re-prefill's
+    caches over layers [1, 3)."""
+    from repro_torch.core.stateful import unit_index_of_split
+    r, pipe = s.runner, mgr.active
+    want = {k: v.clone() for k, v in s.cache.items()}
+    if writer == "step":
+        token, pos = s.next_token(), s.step_pos()
+        ue, ua = pipe._u_edge, pipe._u_all
+        _, new, _, _ = pipe._step(
+            token, {k: want[k] for k in s.subset(0, ue)},
+            {k: want[k] for k in s.subset(ue, ua)}, pos)
+        want.update(new)
+        pipe.process({"token": token})
+    elif writer == "import":
+        payload, _ = s.export_layers(0, r.cfg.num_layers)
+        for v in s.cache.values():
+            v.fill_(7)
+        s.import_layers(payload)
+    else:
+        u0, u1 = unit_index_of_split(r.cfg, 1), unit_index_of_split(r.cfg, 3)
+        x = s._bounds[u0].clone()
+        x[:, s.pos:] = 0
+        want.update(r.recompute_fn(u0, u1)(r.params, x, s.pos))
+        s.recompute_layers(1, 3)
+    return want
+
+
+@pytest.mark.parametrize("writer", ["step", "import", "recompute"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_state_writers_keep_each_entrys_address(arch, writer):
+    """A step's commit, ``import_layers`` and ``recompute_layers`` write
+    into a ``DecodeSession``'s state entries where they lie, so every
+    entry keeps its ``data_ptr`` (a CUDA graph of a stage binds it), and
+    each entry holds what binding the writer's new tensors in its place
+    gave."""
+    mgr, s = _ssm_session(arch)
+    ptrs = {k: v.data_ptr() for k, v in s.cache.items()}
+    want = rebound_state(mgr, s, writer)
+    assert {k: v.data_ptr() for k, v in s.cache.items()} == ptrs
+    for k, v in s.cache.items():
+        assert torch.equal(v, want[k]), k
+    mgr.close()
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-7b",
+                                  "mixtral-8x22b"])
+def test_rope_table_is_built_once_and_equals_the_formula(arch):
+    """``rope_cos_sin`` reads its inverse frequencies from a table built
+    once per (head_dim, theta, device): bit for bit the numpy formula it
+    computed every call before, and so its tables too."""
+    from repro_torch.models import layers as Lyr
+    cfg = tget(arch)
+    hd, theta = cfg.head_dim, cfg.rope_theta
+    want = (1.0 / (theta ** (np.arange(0, hd, 2) / hd))).astype(np.float32)
+    table = Lyr.rope_inv_freq(hd, theta, "cpu")
+    assert table.dtype == torch.float32
+    np.testing.assert_array_equal(table.numpy(), want)
+    assert Lyr.rope_inv_freq(hd, theta, torch.device("cpu")) is table
+    pos = torch.tensor([[0], [17], [2047]])
+    cos, sin = Lyr.rope_cos_sin(pos, hd, theta)
+    ang = pos[..., None].float() * torch.from_numpy(want)
+    assert torch.equal(cos, torch.cos(ang)) and torch.equal(sin, torch.sin(ang))
+
+
+def test_cpu_route_binds_no_graph():
+    """Off the card the pipeline keeps no stage graphs and counts none of
+    the graph counters: every step runs the eager callables."""
+    from repro_torch.core import timing
+    mgr, s = _ssm_session("zamba2-7b")
+    assert mgr.active.graphs is None
+    timing.take_counts()
+    timing.tracing(True)
+    try:
+        mgr.active.process()
+    finally:
+        timing.tracing(False)
+    counts = timing.take_counts()
+    assert counts.get("syncs") == 2
+    assert not {"graph_replays", "graph_captures", "graph_eager"} & set(counts)
+    mgr.close()
