@@ -140,7 +140,7 @@ def check(ctx, control: bool) -> dict:
     ``control``, the tokens the reference in fp8 puts first are judged in
     the program's place (the program's own reading kept beside)."""
     from bench.reference import control as C
-    from bench.reference import ssm as R
+    R = ctx.family("reference")
 
     out = ctx.run.outputs
     gaps, cgaps, n = [], [], 0

@@ -21,7 +21,7 @@ their step ends inside the window.
 A switch_a repartition re-arms its standby on the program's build thread,
 which copies the weights while the loop serves.  An admission's prefill
 landing beside that copy raised the window's allocation peak by about
-0.6-0.9 GiB on falcon-mamba-7b, in some runs and not others of one seed:
+0.6-0.9 GiB on a 7B model, in some runs and not others of one seed:
 a race of two host threads, not a property of the traffic.  Admissions
 therefore wait for the re-arm to land, and the window's peak is the
 re-arm's own, every run.  The wait of each admission is recorded.
@@ -185,7 +185,7 @@ def check(ctx, control: bool) -> dict:
     judged in the program's place (the program's own reading kept
     beside)."""
     from bench.reference import control as C
-    from bench.reference import ssm as R
+    R = ctx.family("reference")
 
     gaps, cgaps, n = [], [], 0
     for s in ctx.run.outputs["sessions"]:

@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import statistics
 
-from bench.work import kernels as K
 from bench.work import model as M
+from bench.work import peaks
 
 
 def mean(values):
@@ -66,7 +66,7 @@ def roofline_pct(run, kernel: str):
     need = traced_work(run)["calls"].get(kernel)
     if not need or t.calls.get(kernel, 0) < need[0]:
         return None
-    return 100.0 * K.bound_seconds(need[1], need[2]) / t.kernel_s[kernel]
+    return 100.0 * peaks.bound_seconds(need[1], need[2]) / t.kernel_s[kernel]
 
 
 def mfu_pct(run):
@@ -77,7 +77,7 @@ def mfu_pct(run):
     if t is None or t.window_s <= 0:
         return None
     flops = traced_work(run)["model_flops"]
-    return 100.0 * flops / (t.window_s * K.PEAK_FLOPS) if flops else None
+    return 100.0 * flops / (t.window_s * peaks.PEAK_FLOPS) if flops else None
 
 
 def idle_pct(run):

@@ -1,6 +1,7 @@
 """What a run records: the serving loop's spans and sizes on the run's own
 clock (seconds from the window's start), the traced stretch's summary,
-and the program's outputs that the check compares.  Metric readers
+the program's own spans and counters (a ``--trace 1`` run's), and the
+program's outputs that the check compares.  Metric readers
 (``bench/metrics/<metric>.py``) read nothing else."""
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ class Run:
     window_peak_bytes: int = 0
     process_peak_bytes: int = 0
     trace: Optional[TraceSummary] = None
+    # the program's spans (``spans.on_run_clock``) and the counters'
+    # totals over the window; None and empty in an untraced run
+    spans: Optional[list] = None
+    counts: dict = field(default_factory=dict)
     outputs: dict = field(default_factory=dict)    # what the check reads
 
     def events(self):

@@ -11,10 +11,10 @@ further clock machinery is needed.  A run that carries them has:
   ``take_spans`` gives them, with ``start``/``end`` on the run's clock;
 * ``run.counts``: the counters' totals over the window;
 * ``run.trace.records``: the stretch's device records ``(start, end,
-  name)`` on the run's clock (``device_records``).
+  name)`` on the run's clock (``trace.device_records``).
 
-Where a run lacks them (the harness does not yet record them: PERF.md,
-Open questions) every function here returns None or nothing.  The
+The harness records them in a ``--trace 1`` run only (``main.run_cell``);
+where a run lacks them every function here returns None or nothing.  The
 serving loop runs on the main thread; the pool's build worker records
 on its own thread.
 """
@@ -23,8 +23,6 @@ from __future__ import annotations
 from bisect import bisect_left, bisect_right
 from collections import defaultdict
 from typing import Optional
-
-from bench.harness.trace import MARKER
 
 SERVING = "MainThread"      # the thread the harness's serving loop runs on
 OUTSIDE = "outside"         # idle time outside every program span
@@ -38,29 +36,8 @@ def on_run_clock(spans, t0: float) -> list:
             for s in spans]
 
 
-def device_records(events, t0: float, t1: float, marker_t: float) -> list:
-    """``(start, end, name)`` of every device record that starts inside the
-    stretch ``[t0, t1]``, placed on the run's clock by the marker kernel
-    as ``trace.summarize`` places them (not clipped to the stretch)."""
-    events = list(events)
-    marks = [s for n, s, _ in events if MARKER in n]
-    if not marks:
-        return []
-    base = min(marks) / 1e9 - marker_t
-    out = []
-    for n, s, e in events:
-        s, e = s / 1e9 - base, e / 1e9 - base
-        if MARKER not in n and t0 <= s <= t1:
-            out.append((s, e, n))
-    return sorted(out)
-
-
-def _spans(run) -> Optional[list]:
-    return getattr(run, "spans", None)
-
-
 def _records(run) -> Optional[list]:
-    return getattr(run.trace, "records", None) if run.trace else None
+    return run.trace.records if run.trace else None
 
 
 def children_of(spans) -> dict:
@@ -135,7 +112,7 @@ def idle_by_span(idle, spans, thread: str = SERVING) -> dict:
 
 
 def _stretch_idle(run) -> Optional[dict]:
-    spans, t = _spans(run), run.trace
+    spans, t = run.spans, run.trace
     if spans is None or t is None or t.window_s <= 0:
         return None
     return idle_by_span(t.idle, spans)
@@ -144,7 +121,7 @@ def _stretch_idle(run) -> Optional[dict]:
 def host_ms_per(run, name: str):
     """Mean over the stretch's ``name`` spans of their wall less the
     ``wait`` spans below them (ms)."""
-    spans, t = _spans(run), run.trace
+    spans, t = run.spans, run.trace
     if spans is None or t is None:
         return None
     kids = children_of(spans)
@@ -160,7 +137,7 @@ def records_per(run, name: str, exclude: str = "standby_build"):
     """Device records starting inside each of the stretch's ``name``
     spans, over those spans; spans that overlap an ``exclude`` span of any
     thread (work beside the serving loop) are left out."""
-    spans, recs, t = _spans(run), _records(run), run.trace
+    spans, recs, t = run.spans, _records(run), run.trace
     if spans is None or not recs or t is None:      # no device records
         return None
     busy = [s for s in spans if s["name"] == exclude]
@@ -178,7 +155,7 @@ def records_per(run, name: str, exclude: str = "standby_build"):
 def counted_per(run, name: str, counters=("syncs", "implicit_syncs")):
     """The ``counters`` counted at or below each of the stretch's ``name``
     spans, over those spans."""
-    spans, t = _spans(run), run.trace
+    spans, t = run.spans, run.trace
     if spans is None or t is None:
         return None
     kids = children_of(spans)
@@ -192,7 +169,7 @@ def counted_per(run, name: str, counters=("syncs", "implicit_syncs")):
 
 def window_spans(run, name: str) -> list:
     """The window's ``name`` spans of any thread."""
-    spans = _spans(run)
+    spans = run.spans
     if spans is None:
         return []
     return inside(spans, name, 0.0, run.seconds, thread=None)
@@ -213,7 +190,7 @@ def notes(run) -> dict:
     """``idle_by_span`` (the stretch's ten largest, s), ``setup_spans``
     (set-up's top-level spans by name: count and summed wall, s) and
     ``counts`` (the window's totals); empty where the run has no spans."""
-    spans = _spans(run)
+    spans = run.spans
     if spans is None:
         return {}
     out = {}
@@ -228,5 +205,5 @@ def notes(run) -> dict:
             setup[s["name"]][1] += s["end"] - s["start"]
     out["setup_spans"] = [[k, n, w] for k, (n, w) in sorted(
         setup.items(), key=lambda kv: -kv[1][1])][:10]
-    out["counts"] = dict(getattr(run, "counts", None) or {})
+    out["counts"] = dict(run.counts)
     return out

@@ -12,10 +12,19 @@ metric by adding files and entries alone:
   rate, its slot count), merged over them;
 * ``bench/drivers/<kind>.py``: the driver of the mix's ``kind``;
 * ``bench/metrics/<metric>.py``: one reader a metric;
-* ``bench/limits/<cell>.json``: the limits the cell's outputs are held to.
+* ``bench/limits/<cell>.json``: the limits the cell's outputs are held to;
+* ``bench/families/<family>/{weights,reference,work}.py``: what depends on
+  the architecture, found by the configuration's ``port["family"]``: its
+  weights from the seed, its plain reference, its work formulas;
+* ``bench/kernels/<kernel>.py``: one file a hand-written kernel of the
+  program: the part of its device name a trace is matched by, its launch
+  counter, its frozen work formula.
+
+Each is loaded from the checkout the cell was loaded from (``Cell.root``).
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -61,6 +70,7 @@ class Cell:
     end_to_end: list           # metric entries this cell reports
     per_layer: list
     run_seconds: int
+    root: Path = ROOT          # the checkout it was loaded from
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -88,7 +98,7 @@ def load_cell(name: str, bench: Optional[dict] = None,
                 mix, limits,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)],
-                int(bench["run_seconds"]))
+                int(bench["run_seconds"]), root)
 
 
 def metric_reader(metric: str, root: Path = ROOT):
@@ -102,3 +112,19 @@ def driver(kind: str, root: Path = ROOT):
     """The module of ``bench/drivers/<kind>.py``."""
     return load_module(root / "bench" / "drivers" / f"{kind}.py",
                        f"bench_driver_{kind}")
+
+
+@functools.lru_cache(maxsize=None)
+def family(name: str, part: str, root: Path = ROOT):
+    """The module of ``bench/families/<name>/<part>.py`` (``weights``,
+    ``reference`` or ``work``), loaded once a process."""
+    return load_module(root / "bench" / "families" / name / f"{part}.py",
+                       f"bench_family_{name}_{part}")
+
+
+@functools.lru_cache(maxsize=None)
+def kernels(root: Path = ROOT) -> dict:
+    """``{kernel: module}`` of every ``bench/kernels/<kernel>.py``."""
+    return {p.stem: load_module(p, f"bench_kernel_{p.stem}")
+            for p in sorted((root / "bench" / "kernels").glob("*.py"))
+            if not p.name.startswith("_")}

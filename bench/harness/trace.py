@@ -17,10 +17,14 @@ idle device when the stretch starts.  ``summarize`` gives:
   serving thread) counts once (``chip_smoke.py``'s ``profile_step``
   summed each op's own time, which overlap counts twice);
 * ``kernel_s`` / ``kernel_records``: device time and records of each of
-  the port's kernels, by a part of its name (``KERNEL_NAMES``);
+  the port's kernels, by a part of its name (``DEVICE_NAME`` of
+  ``bench/kernels/<kernel>.py``);
 * the ten device operations that took most time;
 * ``idle``: the idle intervals, which ``label_idle`` puts down to what
-  the serving loop was doing (its own spans) while the device idled.
+  the serving loop was doing (its own spans) while the device idled;
+* ``records``: every device record that starts in the stretch, on the
+  run's clock (``device_records``), which the span metrics set against
+  the program's spans (``spans.py``).
 """
 from __future__ import annotations
 
@@ -29,12 +33,6 @@ from dataclasses import dataclass, field
 
 import torch
 
-KERNEL_NAMES = {               # the port's kernels: a part of their names
-    "flash_attention": "flash_attention",
-    "flash_decode": "flash_decode",
-    "mamba1_scan": "mamba1_",
-    "ssd_scan": "ssd_",
-}
 MARKER = "spin_kernel"         # ``torch.cuda._sleep``'s kernel
 
 
@@ -50,6 +48,7 @@ class TraceSummary:
     host_t1: float = 0.0
     calls: dict = field(default_factory=dict)   # program launch counters
     events: int = 0            # device records the profiler gave
+    records: list = field(default_factory=list)  # (start, end, name)
 
 
 def _device_events(prof):
@@ -72,17 +71,36 @@ def union(intervals) -> list:
     return out
 
 
+def device_records(events, t0: float, t1: float, marker_t: float) -> list:
+    """``(start, end, name)`` of every device record that starts inside the
+    stretch ``[t0, t1]``, placed on the run's clock by the marker kernel
+    as ``summarize`` places them (not clipped to the stretch)."""
+    events = list(events)
+    marks = [s for n, s, _ in events if MARKER in n]
+    if not marks:
+        return []
+    base = min(marks) / 1e9 - marker_t
+    out = []
+    for n, s, e in events:
+        s, e = s / 1e9 - base, e / 1e9 - base
+        if MARKER not in n and t0 <= s <= t1:
+            out.append((s, e, n))
+    return sorted(out)
+
+
 class TraceMissing(RuntimeError):
     """The profiler gave no marker or no device records in the stretch."""
 
 
 def summarize(events, t0: float, t1: float, marker_t: float,
-              require: bool = True) -> TraceSummary:
+              require: bool = True, names=None) -> TraceSummary:
     """``events`` (name, start_ns, end_ns) over the stretch ``[t0, t1]`` of
     the run's clock; the marker kernel was launched at ``marker_t``.
-    With ``require`` (a run on the card), a trace without the marker or
-    without a device record in the stretch raises ``TraceMissing``: its
-    busy time and idle share would read 0 and 100% for want of records."""
+    ``names`` maps each of the port's kernels to a part of its device
+    name.  With ``require`` (a run on the card), a trace without the
+    marker or without a device record in the stretch raises
+    ``TraceMissing``: its busy time and idle share would read 0 and 100%
+    for want of records."""
     events = list(events)
     marks = [s for n, s, _ in events if MARKER in n]
     if require and not marks:
@@ -104,7 +122,7 @@ def summarize(events, t0: float, t1: float, marker_t: float,
     by_name = defaultdict(float)
     for s, e, n in dev:
         by_name[n[:160]] += e - s
-        for key, part in KERNEL_NAMES.items():
+        for key, part in (names or {}).items():
             if part in n:
                 kernel_s[key] += e - s
                 records[key] += 1
@@ -115,7 +133,8 @@ def summarize(events, t0: float, t1: float, marker_t: float,
         window_s=t1 - t0, busy_s=sum(e - s for s, e in busy),
         kernel_s=dict(kernel_s), kernel_records=dict(records),
         device_ops=[[n, v] for n, v in top], idle=idle,
-        host_t0=t0, host_t1=t1, events=len(events))
+        host_t0=t0, host_t1=t1, events=len(events),
+        records=device_records(events, t0, t1, marker_t))
 
 
 def label_idle(summary: TraceSummary, spans) -> list:
@@ -148,12 +167,13 @@ class Tracer:
     stalled the serving loop.  So its collection, which slows the host's
     dispatch of each launch, lasts the whole run, and a traced run's
     host-clock walls read high.  Only the stretch's records are read.
-    ``clock`` is the run's clock."""
+    ``clock`` is the run's clock; ``names`` as ``summarize``'s."""
 
-    def __init__(self, enabled: bool, device, clock):
+    def __init__(self, enabled: bool, device, clock, names=None):
         self.enabled = enabled
         self.device = device
         self.clock = clock
+        self.names = names
         self.prof = None
         self.summary = None
         self.host_t0 = self.host_t1 = None
@@ -213,7 +233,8 @@ class Tracer:
         if self.host_t0 is not None:
             self.summary = summarize(
                 _device_events(self.prof), self.host_t0, self.host_t1,
-                self._marker_t, require=self.device.type == "cuda")
+                self._marker_t, require=self.device.type == "cuda",
+                names=self.names)
             self.summary.calls = {k: v - self._calls0.get(k, 0)
                                   for k, v in self._calls1.items()}
         self.prof = None

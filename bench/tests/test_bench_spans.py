@@ -12,11 +12,19 @@ import torch
 from bench.harness import spans as SP
 from bench.harness import spec as S
 from bench.harness import trace as T
+from bench.harness.main import run_and_record
 from bench.harness.record import Run
 from bench.harness.trace import TraceSummary
 from bench.tests.tiny import tiny_cell
-from bench.tools.trace_spans import SPAN_METRICS, clock_excess_ms, \
-    run_with_spans
+from bench.tools.trace_spans import clock_excess_ms
+
+SPAN_METRICS = {                        # readers of spans and counters
+    "pool": ("step_host_ms.pool", "launches_per_step.pool",
+             "syncs_per_step.pool", "park_gbps.pool",
+             "handoff_recompute_ms.pool", "idle_host_pct.pool",
+             "graph_hit_pct.pool", "graph_captures.pool"),
+    "stream": ("idle_host_pct.stream",),
+}
 
 MS = 1_000_000                          # ns
 SEED = 2 ** 33 + 12345
@@ -84,11 +92,11 @@ def test_idle_by_exact_intersection():
 def test_device_records_on_the_runs_clock():
     ev = [(T.MARKER, 100 * MS, 101 * MS), ("k", 105 * MS, 109 * MS),
           ("copy", 150 * MS, 300 * MS), ("late", 400 * MS, 401 * MS)]
-    recs = SP.device_records(ev, 2.0, 2.1, 2.0)
+    recs = T.device_records(ev, 2.0, 2.1, 2.0)
     assert [n for _, _, n in recs] == ["k", "copy"]
     assert recs[0][:2] == pytest.approx((2.005, 2.009))
     assert recs[1][1] == pytest.approx(2.2)        # not clipped
-    assert SP.device_records(ev[1:], 2.0, 2.1, 2.0) == []   # no marker
+    assert T.device_records(ev[1:], 2.0, 2.1, 2.0) == []    # no marker
 
 
 def test_each_reader_on_a_made_up_run():
@@ -143,7 +151,7 @@ def test_clock_excess_on_made_up_records(late_s, excess_ms):
 def test_a_traced_run_with_the_recorder_on(cell):
     torch.set_num_threads(2)
     c = tiny_cell(cell, {"widest_gap": 1e-3})
-    out, run = run_with_spans(cell, SEED, 1.5, device="cpu", spec=c)
+    out, run = run_and_record(cell, SEED, 1.5, True, device="cpu", cell=c)
     assert out["correct"] is True
     names = {s["name"] for s in run.spans}
     notes = SP.notes(run)
@@ -174,7 +182,7 @@ def test_the_clocks_agree_on_the_card(cuda):
     """No device record that started before a serving thread's ``wait``
     began ends more than 0.1 ms after the wait ended, on a short traced
     pool run (``clock_excess_ms``)."""
-    out, run = run_with_spans("falcon-mamba-7b.pool", SEED, 12.0,
+    out, run = run_and_record("falcon-mamba-7b.pool", SEED, 12.0, True,
                               device=cuda)
     excess = clock_excess_ms(run)
     print(json.dumps({"clock_excess_ms": excess,

@@ -1,27 +1,27 @@
 """Cells of the benchmark at a size the CPU runs in seconds, for the
-tests: the configurations' architectures at tiny widths and depths, the
-mixes' shapes at short lengths and a window of a second or two."""
+tests: the configurations' architectures at tiny widths and depths (one
+file a configuration, ``bench/tests/tiny_ports/<config>.json``, the
+``port`` group it runs), the mixes' shapes at short lengths and a window
+of a second or two."""
 from __future__ import annotations
 
 import copy
+from pathlib import Path
 
 from bench.harness import spec as S
 
-PORTS = {
-    "falcon-mamba-7b": {
-        "name": "falcon-mamba-7b-tiny", "family": "ssm", "num_layers": 3,
-        "d_model": 64, "num_heads": 0, "num_kv_heads": 0, "d_ff": 0,
-        "vocab_size": 96, "norm_eps": 1e-5,
-        "ssm": {"kind": "mamba1", "d_state": 16, "d_conv": 4, "expand": 2,
-                "dt_rank": 8}},
-    "zamba2-7b": {
-        "name": "zamba2-7b-tiny", "family": "hybrid", "num_layers": 4,
-        "d_model": 64, "num_heads": 4, "num_kv_heads": 4, "d_ff": 128,
-        "vocab_size": 96, "hybrid_period": 2, "rope_theta": 10000.0,
-        "norm_eps": 1e-5,
-        "ssm": {"kind": "mamba2", "d_state": 16, "d_conv": 4, "expand": 2,
-                "head_dim": 16}},
-}
+
+def port(config: str, root: Path = S.ROOT) -> dict:
+    """The tiny ``port`` group of ``config``."""
+    return S.load_json(root / "bench" / "tests" / "tiny_ports"
+                       / f"{config}.json")
+
+
+def configs(root: Path = S.ROOT) -> list:
+    """The configurations that have a tiny size."""
+    return sorted(p.stem for p in
+                  (root / "bench" / "tests" / "tiny_ports").glob("*.json"))
+
 
 MIXES = {
     "requests": {"arrivals": {"rate": 12.0},
@@ -38,18 +38,18 @@ MIXES = {
 }
 
 
-def tiny_cell(name: str, limits=None) -> S.Cell:
-    """The cell ``name`` (``<config>.<mix>``) at the tiny size: one of
-    ``BENCHMARK.json``'s, or a pairing of its configurations and mixes
-    that it does not benchmark."""
-    bench = S.load_json(S.ROOT / "BENCHMARK.json")
+def tiny_cell(name: str, limits=None, root: Path = S.ROOT) -> S.Cell:
+    """The cell ``name`` (``<config>.<mix>``) of the checkout ``root`` at
+    the tiny size: one of ``BENCHMARK.json``'s, or a pairing of its
+    configurations and mixes that it does not benchmark."""
+    bench = S.load_json(root / "BENCHMARK.json")
     if name not in {w["name"] for w in bench["workloads"]}:
         config, traffic = name.rsplit(".", 1)
         bench["workloads"].append({"name": name, "config": config,
                                    "traffic": traffic, "chips": 1})
-    cell = S.load_cell(name, bench)
+    cell = S.load_cell(name, bench, root)
     cell = copy.deepcopy(cell)
-    cell.config["port"] = copy.deepcopy(PORTS[cell.config_name])
+    cell.config["port"] = port(cell.config_name, root)
     cell.config["dtype"] = "float32"
     cell.mix = S.merge(cell.mix, MIXES[cell.mix["kind"]])
     if limits is not None:
